@@ -1,0 +1,71 @@
+// PyTorch binding of the port's CUDA kernels, and the extension's only
+// source that includes torch/extension.h.  Each function allocates its
+// output, launches its kernel's C entry point (<name>/kernel.cu) on the
+// current stream and raises if the launch was refused.  The Python wrappers
+// in <name>/ops.py check device, dtype, shape and contiguity first.
+
+#include <cmath>
+
+#include <c10/cuda/CUDAStream.h>
+#include <torch/extension.h>
+
+extern "C" int rmsnorm_forward(const void* x, const float* w, void* out,
+                               int rows, int D, float eps, int dtype,
+                               void* stream);
+extern "C" int flash_attention_forward(const void* q, const void* k,
+                                       const void* v, void* o, int B, int S,
+                                       int H, int Kv, int D, int causal,
+                                       float scale, float softcap, int dtype,
+                                       void* stream);
+
+namespace {
+
+// the kernels' dtype codes: 0 = float32, 1 = bfloat16
+int dtype_code(const torch::Tensor& t) {
+  TORCH_CHECK(t.scalar_type() == torch::kFloat ||
+                  t.scalar_type() == torch::kBFloat16,
+              "the kernels take float32 or bfloat16, got ", t.scalar_type());
+  return t.scalar_type() == torch::kFloat ? 0 : 1;
+}
+
+void* stream_of(const torch::Tensor& t) {
+  return c10::cuda::getCurrentCUDAStream(t.device().index()).stream();
+}
+
+torch::Tensor rmsnorm(const torch::Tensor& x, const torch::Tensor& w,
+                      double eps) {
+  auto out = torch::empty_like(x);
+  const int64_t D = x.size(-1);
+  const int64_t rows = D ? x.numel() / D : 0;
+  const int err = rmsnorm_forward(x.data_ptr(), w.data_ptr<float>(),
+                                  out.data_ptr(), static_cast<int>(rows),
+                                  static_cast<int>(D),
+                                  static_cast<float>(eps), dtype_code(x),
+                                  stream_of(x));
+  TORCH_CHECK(err == 0, "rmsnorm kernel launch failed: cudaError ", err);
+  return out;
+}
+
+torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                              const torch::Tensor& v, bool causal,
+                              double softcap) {
+  auto out = torch::empty_like(q);
+  const int D = static_cast<int>(q.size(3));
+  const int err = flash_attention_forward(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)), D,
+      causal ? 1 : 0, static_cast<float>(1.0 / std::sqrt(double(D))),
+      static_cast<float>(softcap), dtype_code(q), stream_of(q));
+  TORCH_CHECK(err == 0, "flash_attention kernel launch failed: cudaError ",
+              err);
+  return out;
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("rmsnorm", &rmsnorm, "RMSNorm of the rows of x (..., D)");
+  m.def("flash_attention", &flash_attention,
+        "GQA flash attention forward, q (B,S,H,D), k/v (B,S,Kv,D)");
+}

@@ -1,0 +1,156 @@
+"""GQA attention of the port (counterpart of ``repro/models/attention.py``).
+
+Prefill attention runs the hand-written flash-attention kernel on a CUDA
+tensor; on the CPU (and on the plain path, ``kernels=False``) it is the
+JAX package's full or blocked attention.  Decode attention is the JAX
+package's chunked partial softmax in plain PyTorch: it is plain XLA there
+too, not a Pallas kernel.  MLA waits for a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.models import layers as L
+
+
+def _local_partial_softmax(q, k, v, valid, *, chunk: int = 1024,
+                           softcap: float = 0.0):
+    """Online-softmax partials over the KV cache, ``chunk`` keys at a time.
+
+    q: (B,1,Kv,G,D); k/v: (B,Sl,Kv,Dv); valid: (Sl,) bool.
+    Returns (m, l, acc): (B,Kv,G,1[,Dv]) f32 partial stats.  Scores are f32
+    from the cache's dtype, as the JAX einsum's ``preferred_element_type``.
+    """
+    B, Sl, Kv, _ = k.shape
+    Dv = v.shape[-1]
+    G = q.shape[3]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    while Sl % chunk:
+        chunk -= 1
+    qf = q.float()
+    m = torch.full((B, Kv, G, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, Kv, G, 1), device=q.device)
+    a = torch.zeros((B, Kv, G, 1, Dv), device=q.device)
+    for c0 in range(0, Sl, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kb.float()) * scale
+        if softcap > 0.0:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(valid[c0:c0 + chunk], s, NEG_INF)
+        m1 = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m1[..., None])
+        corr = torch.exp(m - m1)
+        l = l * corr + p.sum(dim=-1)
+        a = a * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                               vb.float())
+        m = m1
+    return m, l, a
+
+
+def sharded_decode_attention(q, k_cache, v_cache, pos: int, *,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """The single-shard branch of the JAX function of this name: chunked
+    partial softmax over the whole cache, keys ``<= pos`` valid.  The port
+    has no sequence-sharded cache yet."""
+    B, _, H, D = q.shape
+    S, Kv = k_cache.shape[1], k_cache.shape[2]
+    Dv = v_cache.shape[-1]
+    qg = q.reshape(B, 1, Kv, H // Kv, D)
+    valid = torch.arange(S, device=q.device) < pos + 1
+    _, l, acc = _local_partial_softmax(qg, k_cache, v_cache, valid,
+                                       softcap=softcap)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+class GQA(nn.Module):
+    """Projections wq (d, H*hd), wk/wv (d, Kv*hd), wo (H*hd, d)."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 dtype: torch.dtype = L.DEFAULT_DTYPE):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        H, Kv = cfg.n_heads, cfg.n_kv_heads
+        self.wq = L.empty_param(d, H * hd, dtype=dtype, device=device)
+        self.wk = L.empty_param(d, Kv * hd, dtype=dtype, device=device)
+        self.wv = L.empty_param(d, Kv * hd, dtype=dtype, device=device)
+        self.wo = L.empty_param(H * hd, d, dtype=dtype, device=device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            w.copy_(L.dense_init(generator, *w.shape, dtype=w.dtype))
+
+
+def _qkv(x, p: GQA, cfg: ArchConfig):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    return (q.reshape(B, S, cfg.n_heads, hd),
+            k.reshape(B, S, cfg.n_kv_heads, hd),
+            v.reshape(B, S, cfg.n_kv_heads, hd))
+
+
+def _rope_dims(cfg: ArchConfig) -> int:
+    rd = int(cfg.resolved_head_dim * cfg.rope_fraction)
+    return rd - (rd % 2)
+
+
+def gqa_apply(x, p: GQA, cfg: ArchConfig, *, positions: torch.Tensor,
+              kernels: bool = True) -> torch.Tensor:
+    """Causal prefill attention.  x: (B,S,D); positions: (S,)."""
+    q, k, v = _qkv(x, p, cfg)
+    rd = _rope_dims(cfg)
+    if rd:
+        cos, sin = L.rope_angles(positions, rd, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin, rd)
+        k = L.apply_rope(k, cos, sin, rd)
+    if kernels and x.is_cuda:
+        o = flash_attention(q, k, v, causal=True, softcap=cfg.logit_softcap)
+    elif q.shape[1] * k.shape[1] <= 1024 * 1024:
+        o = L.full_attention(q, k, v, causal=True, softcap=cfg.logit_softcap)
+    else:
+        o = L.blocked_attention(q, k, v, causal=True,
+                                softcap=cfg.logit_softcap)
+    return o.reshape(x.shape[0], x.shape[1], -1) @ p.wo
+
+
+def gqa_make_cache(cfg: ArchConfig, batch: int, seq: int, n_layers: int, *,
+                   device=None,
+                   dtype: torch.dtype = L.DEFAULT_DTYPE
+                   ) -> Dict[str, torch.Tensor]:
+    shape = (n_layers, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(x, p: GQA, cfg: ArchConfig, k_cache, v_cache, pos: int):
+    """x: (B,1,D); caches (B,S,Kv,hd); pos: index of the new token.
+
+    Writes the new K/V entry into the caches in place (the JAX function
+    returns updated copies; in place saves a cache copy per layer and step)
+    and returns (out, k_cache, v_cache).
+    """
+    q, k, v = _qkv(x, p, cfg)
+    rd = _rope_dims(cfg)
+    if rd:
+        posv = torch.tensor([pos], device=x.device)
+        cos, sin = L.rope_angles(posv, rd, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin, rd)
+        k = L.apply_rope(k, cos, sin, rd)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    o = sharded_decode_attention(q, k_cache, v_cache, pos,
+                                 softcap=cfg.logit_softcap)
+    return o.reshape(x.shape[0], 1, -1) @ p.wo, k_cache, v_cache

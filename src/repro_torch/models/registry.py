@@ -1,0 +1,90 @@
+"""Model + config registry of the port: ``--arch <id>`` resolution."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import TransformerLM
+
+_CONFIG_MODULES = {
+    "llama3.2-1b": "repro_torch.configs.llama32_1b",
+}
+
+# the JAX package's other architectures, and the ROADMAP.md item that ports
+# each one
+_NOT_PORTED = {
+    "whisper-tiny": "queue 1 item 10 (enc-dec)",
+    "llama-3.2-vision-90b": "queue 1 item 10 (VLM cross-attn)",
+    "command-r-plus-104b": "queue 1 item 10 (dense variants)",
+    "glm4-9b": "queue 1 item 10 (dense variants)",
+    "stablelm-1.6b": "queue 1 item 10 (dense variants)",
+    "qwen2-moe-a2.7b": "queue 1 item 10 (MoE)",
+    "deepseek-v2-lite-16b": "queue 1 item 10 (MLA, MoE)",
+    "zamba2-1.2b": "queue 1 item 10 and kernel K3 (SSD scan)",
+    "xlstm-125m": "queue 1 item 10 and kernel K4 (mLSTM)",
+}
+
+ARCH_IDS = tuple(_CONFIG_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: ROADMAP.md "
+            f"{_NOT_PORTED[arch_id]}")
+    if arch_id not in _CONFIG_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    return importlib.import_module(_CONFIG_MODULES[arch_id]).CONFIG
+
+
+def reduced_config(cfg: ArchConfig) -> ArchConfig:
+    """A tiny same-family config for CPU tests: the dense-family arithmetic
+    of the JAX package's ``reduced_config``."""
+    return dataclasses.replace(
+        cfg,
+        n_layers=min(cfg.n_layers, 4),
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=(min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads
+                    else 4),
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512,
+        head_dim=0,
+    )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  Raises rather than carry on on the CPU when there is no
+    card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card by default; pass "
+            "device='cpu' to run on the CPU")
+    return dev
+
+
+def check_on_device(model: torch.nn.Module, device: torch.device) -> None:
+    found = next(model.parameters()).device
+    if found.type != device.type:
+        raise ValueError(f"model lies on {found}, entry point asked for "
+                         f"{device}")
+
+
+def build_model(cfg: ArchConfig, *, device=None,
+                dtype: torch.dtype = L.DEFAULT_DTYPE,
+                seed: Optional[int] = 0) -> TransformerLM:
+    """The model for ``cfg`` on ``device`` (the card by default), with
+    weights drawn from ``seed`` by a ``torch.Generator`` on that device;
+    ``seed=None`` leaves them uninitialised for ``load_state_dict``."""
+    dev = resolve_device(device)
+    model = TransformerLM(cfg, device=dev, dtype=dtype)
+    if seed is not None:
+        model.init(torch.Generator(device=dev).manual_seed(seed))
+    return model

@@ -1,0 +1,144 @@
+"""Dense GQA transformer LM of the port (counterpart of the dense family of
+``repro/models/transformer.py``).
+
+One ``Block`` module per layer in a ``ModuleList`` takes the place of the
+JAX package's scanned, layer-stacked parameters.  Surface:
+
+    init(generator)                       fill the weights from a seed
+    forward_logits(tokens) -> logits      (B, S) -> (B, S, V) f32
+    init_cache(batch_size, seq_len) -> cache
+    decode_step(cache, tokens, pos) -> (logits, cache)
+
+``use_kernels`` (True by default) sends RMSNorm and prefill attention of
+CUDA tensors to the hand-written kernels; set it to False for the plain
+PyTorch path, which the checks use as their reference on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 dtype: torch.dtype = L.DEFAULT_DTYPE):
+        super().__init__()
+        self.attn_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.attn = A.GQA(cfg, device=device, dtype=dtype)
+        self.ffn_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, device=device,
+                         dtype=dtype)
+
+
+def layer_apply(x, p: Block, cfg: ArchConfig, *, positions,
+                kernels: bool = True) -> torch.Tensor:
+    h = L.norm_apply(x, p.attn_norm, cfg.norm_eps, kernels=kernels)
+    x = x + A.gqa_apply(h, p.attn, cfg, positions=positions, kernels=kernels)
+    h2 = L.norm_apply(x, p.ffn_norm, cfg.norm_eps, kernels=kernels)
+    return x + L.mlp_apply(h2, p.ffn, cfg.act)
+
+
+class TransformerLM(nn.Module):
+    """Dense transformer LM with tied embeddings; weights in (d_in, d_out)
+    layout."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 dtype: torch.dtype = L.DEFAULT_DTYPE):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: ROADMAP.md queue "
+                f"1 item 10")
+        if not cfg.tie_embeddings:
+            raise NotImplementedError(
+                "untied embeddings (an lm_head) are not ported yet: "
+                "ROADMAP.md queue 1 item 10 (dense variants)")
+        self.cfg = cfg
+        self.use_kernels = True
+        self.embed = L.empty_param(cfg.vocab_size, cfg.d_model, dtype=dtype,
+                                   device=device)
+        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.blocks = nn.ModuleList(
+            Block(cfg, device=device, dtype=dtype)
+            for _ in range(cfg.n_layers))
+
+    # ---------------------------------------------------------------- init
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "TransformerLM":
+        cfg = self.cfg
+        self.embed.copy_(L.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                      dtype=self.embed.dtype))
+        for norm in self.modules():
+            if isinstance(norm, L.RMSNorm):
+                norm.w.fill_(1.0)
+        for blk in self.blocks:
+            blk.attn.init(generator)
+            blk.ffn.init(generator)
+        return self
+
+    # ------------------------------------------------------------ forward
+    def forward_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) int -> logits (B, S, V) f32."""
+        cfg = self.cfg
+        # the embedding is gathered through f32, as the JAX forward does
+        x = self.embed.float()[tokens].to(self.embed.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for blk in self.blocks:
+            x = layer_apply(x, blk, cfg, positions=positions,
+                            kernels=self.use_kernels)
+        x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
+                         kernels=self.use_kernels)
+        return self._logits(x)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits from bf16 operands without rounding them to bf16.
+
+        On the card, ``torch.mm(..., out_dtype=float32)`` accumulates and
+        writes in f32 while reading the bf16 weights as they are; an f32
+        copy of the tied 128256x2048 embedding would cost 1 GB of memory
+        and twice the bytes per decode step.  The CPU backend has no
+        ``out_dtype`` matmul, so there the operands are upcast.
+        """
+        w = self.embed.t()
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.is_cuda and x2.dtype != torch.float32:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            out = x2.float() @ w.float()
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+
+    # ------------------------------------------------------------- decode
+    def init_cache(self, batch_size: int,
+                   seq_len: int) -> Dict[str, torch.Tensor]:
+        return A.gqa_make_cache(self.cfg, batch_size, seq_len,
+                                self.cfg.n_layers, device=self.embed.device)
+
+    def decode_step(self, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor, pos: int):
+        """tokens: (B, 1); pos: int.  Returns (logits (B,1,V) f32, cache);
+        the cache is updated in place."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        x = self._decode_gqa(cache, x, pos)
+        x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
+                         kernels=self.use_kernels)
+        return self._logits(x), cache
+
+    def _decode_gqa(self, cache, x, pos: int):
+        cfg = self.cfg
+        for i, blk in enumerate(self.blocks):
+            h = L.norm_apply(x, blk.attn_norm, cfg.norm_eps,
+                             kernels=self.use_kernels)
+            a, _, _ = A.gqa_decode(h, blk.attn, cfg, cache["k"][i],
+                                   cache["v"][i], pos)
+            x = x + a
+            h2 = L.norm_apply(x, blk.ffn_norm, cfg.norm_eps,
+                              kernels=self.use_kernels)
+            x = x + L.mlp_apply(h2, blk.ffn, cfg.act)
+        return x

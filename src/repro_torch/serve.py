@@ -1,0 +1,132 @@
+"""Serving substrate of the port: batched decode with KV caches and a
+request batcher (counterpart of ``repro/serve.py``).
+
+``make_prefill_step`` is the bulk forward over whole prompts;
+``make_serve_step`` the one-token decode; ``BatchedServer`` continuous
+batching over a fixed slot count with greedy sampling.  All three run on
+the card unless the caller passes ``device="cpu"``.
+
+``BatchedServer`` keeps the JAX server's behaviour, quirks included, so its
+tokens can be held against the reference: decode runs in lockstep on one
+global position; a request that takes over a slot does not reset that
+slot's KV cache (every row attends to ``arange(S) < pos + 1``, so it sees
+the previous occupant's entries); empty slots feed token 0 and write to the
+cache; ``run_until_drained`` stops silently at ``pos >= max_seq - 1``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import check_on_device, resolve_device
+
+
+def make_serve_step(model, *, device=None):
+    """Returns step(cache, tokens (B,1), pos) -> (logits (B,1,V) f32,
+    cache); the cache is updated in place."""
+    dev = resolve_device(device)
+    check_on_device(model, dev)
+
+    def step(cache, tokens, pos: int):
+        with torch.inference_mode():
+            return model.decode_step(cache, tokens.to(dev), pos)
+
+    return step
+
+
+def make_prefill_step(model, *, device=None):
+    """Returns step(tokens (B,S)) -> logits (B,S,V) f32: the full-sequence
+    forward."""
+    dev = resolve_device(device)
+    check_on_device(model, dev)
+
+    def step(tokens):
+        with torch.inference_mode():
+            return model.forward_logits(tokens.to(dev))
+
+    return step
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (L,) int32
+    max_new: int = 16
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchedServer:
+    """Slot-based continuous batching (greedy sampling).
+
+    Prompts are fed token by token through the decode step (prefill by
+    decode, as in the JAX server; ``make_prefill_step`` is the bulk
+    prefill).
+    """
+
+    def __init__(self, model, *, max_batch: int = 4, max_seq: int = 256,
+                 device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.step_fn = make_serve_step(model, device=self.device)
+        self.cache = model.init_cache(max_batch, max_seq)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.slot_pos = [0] * max_batch
+        self.pending: "queue.Queue[Request]" = queue.Queue()
+        self.completed: List[Request] = []
+        self.pos = 0                # global position (lockstep decode)
+
+    def submit(self, req: Request) -> None:
+        self.pending.put(req)
+
+    def _fill_slots(self) -> None:
+        for i in range(self.max_batch):
+            if self.slots[i] is None and not self.pending.empty():
+                self.slots[i] = self.pending.get()
+                self.slot_pos[i] = 0
+
+    def _current_tokens(self) -> np.ndarray:
+        toks = np.zeros((self.max_batch, 1), np.int64)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            p = self.slot_pos[i]
+            if p < len(req.prompt):
+                toks[i, 0] = req.prompt[p]
+            elif req.out:
+                toks[i, 0] = req.out[-1]
+        return toks
+
+    def step(self) -> None:
+        self._fill_slots()
+        if all(s is None for s in self.slots):
+            return
+        toks = torch.from_numpy(self._current_tokens())
+        logits, self.cache = self.step_fn(self.cache, toks, self.pos)
+        nxt = logits[:, 0, :].argmax(dim=-1).cpu().numpy()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.slot_pos[i] += 1
+            if self.slot_pos[i] >= len(req.prompt):
+                req.out.append(int(nxt[i]))
+                if len(req.out) >= req.max_new:
+                    req.done = True
+                    self.completed.append(req)
+                    self.slots[i] = None
+        self.pos += 1
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if (self.pending.empty()
+                    and all(s is None for s in self.slots)):
+                break
+            if self.pos >= self.max_seq - 1:
+                break
+            self.step()
