@@ -5,26 +5,32 @@
 
 Phases, each printing one ``phase <name>: {...}`` line:
 
-1. build    -- compile every CUDA kernel of the serving path and its
+1. build    -- compile every CUDA kernel of the serving paths and their
                binding from the sources in this checkout, with
                torch.utils.cpp_extension.load (one compiler per source, in
                parallel).
 2. kernels  -- hold each kernel against its plain PyTorch version on the
-               card (f32 2e-5, bf16 2e-2, as tests/test_kernels.py), with
-               its time and the time of the library call for the same
-               function (a yardstick only; the port never calls it).
-3. prefill  -- full-width llama3.2-1b (random weights from a seed, bf16),
-               B=4, S=1024 through ``make_prefill_step`` with the kernels,
+               card, at each kernel's own tolerance (``TOL``), with its
+               time, the plain version's time and the time of the library
+               call for the same function where there is one (a yardstick
+               only; the port never calls it).
+3. per model, llama3.2-1b (dense) then zamba2-1.2b (hybrid: Mamba2 blocks
+   and a shared attention block), each at its published widths and full
+   depth, random weights from a seed, bf16:
+   init     -- build the model on the card.
+   prefill  -- B=4, S=1024 through ``make_prefill_step`` with the kernels,
                against the same model and weights on the plain path.
-4. serve    -- ``BatchedServer`` at full width, max_batch 8, max_seq 1024,
-               16 requests of 8-64 prompt tokens and 32 new tokens each;
-               plus decode against prefill logits on one short sequence.
-5. profile  -- device time by kernel of one prefill and one decode step.
+   serve    -- ``BatchedServer``, max_batch 8, max_seq 1024, 16 requests of
+               8-64 prompt tokens and 32 new tokens each; plus decode
+               against prefill logits on one sequence of 64 tokens.
+   profile  -- device time by kernel of one prefill and one decode step.
 
-Launch counts are set to 0 just before the main path (prefill + serve) and
-read just after; the run fails if a kernel of the path was never launched.
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+Launch counts are set to 0 just before each path's prefill and serve
+phases and read just after; the run fails if a kernel of a path was never
+launched on it, or if a prefill launched other counts than its model's
+layers give.  The line before the last is the kernel table as JSON; the
+last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -43,8 +49,16 @@ SRC = os.path.join(REPO, "src")
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
-       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# each kernel against its plain version: tests/test_kernels.py's bounds
+# for the JAX package's kernel of the same function (K3's are those of
+# test_ssd_kernel_sweep; its final state is held at 1e-3)
+_DENSE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+TOL = {"rmsnorm": _DENSE_TOL, "flash_attention": _DENSE_TOL,
+       "ssd": {"float32": dict(rtol=2e-4, atol=2e-4),
+               "bfloat16": dict(rtol=4e-2, atol=4e-2),
+               "state": dict(rtol=1e-3, atol=1e-3)}}
+ARCHS = ("llama3.2-1b", "zamba2-1.2b")
 SEED = 0
 
 
@@ -86,12 +100,13 @@ def device_kernels(torch, fn) -> dict:
             if ev.device_type == DeviceType.CUDA}
 
 
-def check_close(torch, name, out, ref, dtype) -> float:
+def check_close(torch, kernel, name, out, ref, dtype) -> float:
+    tol = TOL[kernel][dtype]
     err = (out.float() - ref.float()).abs().max().item()
-    if not torch.allclose(out.float(), ref.float(), **TOL[dtype]):
+    if not torch.allclose(out.float(), ref.float(), **tol):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err:.3e}, "
-                             f"tolerance {TOL[dtype]})")
+                             f"tolerance {tol})")
     return err
 
 
@@ -114,29 +129,38 @@ def phase_kernels(torch, dev):
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     table = {}
 
-    # K1: the serving path's shapes are (B*S, 2048) in prefill and
-    # (max_batch, 2048) in decode; bf16 x with f32 weights
-    for R, D in [(100, 96), (256, 512), (8, 2048), (4 * 1024, 2048)]:
+    # K1: llama's serving path runs (B*S, 2048) in prefill and
+    # (max_batch, 2048) in decode; zamba2's adds the gated norm over
+    # d_inner, (B*S, 4096).  bf16 x with f32 weights
+    rms_cases = [(100, 96), (256, 512), (8, 2048), (4 * 1024, 2048),
+                 (8, 4096), (4 * 1024, 4096)]
+    for R, D in rms_cases:
         for dname, dt in dts.items():
             x = torch.randn(R, D, generator=g, device=dev).to(dt)
             w = torch.randn(D, generator=g, device=dev)
-            err = check_close(torch, f"rmsnorm ({R},{D}) {dname}",
+            err = check_close(torch, "rmsnorm", f"rmsnorm ({R},{D}) {dname}",
                               rmsnorm(x, w), rmsnorm_ref(x, w), dname)
             ms = cuda_ms(torch, lambda: rmsnorm(x, w))
             lib = cuda_ms(torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
             print(f"  rmsnorm R={R} D={D} {dname} err={err:.3e} "
                   f"ms={ms:.5f} library_ms={lib:.5f}", flush=True)
-            if (R, D, dname) == (4 * 1024, 2048, "bfloat16"):
+            if R == 4 * 1024 and dname == "bfloat16":
                 plain = cuda_ms(torch, lambda: rmsnorm_ref(x, w))
                 n_bytes = 2 * x.numel() * x.element_size() + 4 * D
                 bms, by = bound_ms(n_bytes, 4 * x.numel(), "float32")
-                table["rmsnorm"] = dict(
+                row = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib, shape=[R, D],
-                    dtype=dname, library_kernels=device_kernels(
-                        torch, lambda: F.rms_norm(x, (D,), w, 1e-5)))
+                    dtype=dname)
+                if D == 2048:      # the table's row: llama's prefill shape
+                    row["library_kernels"] = device_kernels(
+                        torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
+                    table["rmsnorm"] = row
+                else:
+                    table["rmsnorm_d_inner"] = row
 
-    # K2: the serving path's prefill is B=4, S=1024, H:Kv=32:8, D=64, causal
+    # K2: llama's prefill is B=4, S=1024, H:Kv=32:8, D=64, causal; zamba2's
+    # shared attention the same at 32:32
     cases = [(2, S, H, Kv, D, causal, dname, 0.0)
              for S in (128, 192, 1024) for H, Kv in ((32, 8), (4, 4), (2, 1))
              for D in (32, 64, 128) for causal in (True, False)
@@ -145,9 +169,13 @@ def phase_kernels(torch, dev):
     cases += [(2, S, 32, 8, D, causal, dname, 0.0)
               for S in (200, 1000) for D in (64, 128)
               for causal in (True, False) for dname in dts]
-    cases += [(1, 128, 2, 2, 32, True, "float32", 20.0),
-              (4, 1024, 32, 8, 64, True, "bfloat16", 0.0)]
-    for B, S, H, Kv, D, causal, dname, cap in cases:
+    main_cases = {(4, 1024, 32, 8, 64, True, "bfloat16", 0.0):
+                  "flash_attention",
+                  (4, 1024, 32, 32, 64, True, "bfloat16", 0.0):
+                  "flash_attention_mha"}
+    cases += [(1, 128, 2, 2, 32, True, "float32", 20.0)] + list(main_cases)
+    for case in cases:
+        B, S, H, Kv, D, causal, dname, cap = case
         dt = dts[dname]
         q = torch.randn(B, S, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, S, Kv, D, generator=g, device=dev).to(dt)
@@ -155,7 +183,8 @@ def phase_kernels(torch, dev):
         run = lambda: flash_attention(q, k, v, causal=causal,  # noqa: E731
                                       softcap=cap)
         ref = attention_ref(q, k, v, causal=causal, softcap=cap)
-        err = check_close(torch, f"flash_attention B={B} S={S} H={H}:{Kv} "
+        err = check_close(torch, "flash_attention",
+                          f"flash_attention B={B} S={S} H={H}:{Kv} "
                           f"D={D} causal={causal} {dname} softcap={cap}",
                           run(), ref, dname)
         del ref
@@ -169,7 +198,7 @@ def phase_kernels(torch, dev):
         print(f"  flash_attention B={B} S={S} H={H}:{Kv} D={D} "
               f"causal={int(causal)} {dname} softcap={cap} err={err:.3e} "
               f"ms={ms:.4f} library_ms={lib_txt}", flush=True)
-        if (B, S, H, Kv, D, causal, dname, cap) == cases[-1]:
+        if case in main_cases:
             plain = cuda_ms(torch, lambda: attention_ref(
                 q, k, v, causal=causal), iters=3)
             pairs = S * (S + 1) // 2 if causal else S * S
@@ -178,15 +207,75 @@ def phase_kernels(torch, dev):
             n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
             bms, by = bound_ms(n_bytes, flops, dname)
-            table["flash_attention"] = dict(
+            row = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib, shape=[B, S, H, Kv, D],
-                dtype=dname, causal=causal, library_kernels=device_kernels(
+                dtype=dname, causal=causal)
+            if main_cases[case] == "flash_attention":
+                row["library_kernels"] = device_kernels(
                     torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=True)))
-    emit("kernels", cases_rmsnorm=8, cases_flash_attention=len(cases),
+                        qt, kt, vt, is_causal=causal, enable_gqa=True))
+            table[main_cases[case]] = row
+
+    n_ssd = ssd_cases(torch, dev, g, dts, table)
+    emit("kernels", cases_rmsnorm=2 * len(rms_cases),
+         cases_flash_attention=len(cases), cases_ssd=n_ssd,
          main_shapes=table)
     return table
+
+
+def ssd_cases(torch, dev, g, dts, table) -> int:
+    """K3 against its plain version: the JAX sweep's shapes
+    (tests/test_kernels.py::test_ssd_kernel_sweep), one sequence shorter
+    than the chunk (a chunk of 100 tokens, as ``mamba_apply`` scans it),
+    and zamba2-1.2b's prefill (B 4, S 1024, 64 heads of 64, N 64, chunk
+    256), each in f32 and bf16.  No single PyTorch call computes an SSD
+    scan, so there is no library time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan.ops import ssd
+    from repro_torch.kernels.mamba_scan.ref import ssd_chunked
+    main = (4, 1024, 64, 64, 1, 64, 256)
+    shapes = [(2, 128, 4, 32, 1, 16, 32), (2, 128, 4, 32, 2, 16, 64),
+              (2, 64, 2, 64, 2, 32, 16), (2, 100, 8, 64, 1, 64, 100), main]
+    n = 0
+    for Bt, T, H, P, G, N, Q in shapes:
+        for dname, dt in dts.items():
+            x = torch.randn(Bt, T, H, P, generator=g, device=dev).to(dt)
+            dtv = F.softplus(torch.randn(Bt, T, H, generator=g, device=dev))
+            A = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.5)
+            B = torch.randn(Bt, T, G, N, generator=g, device=dev).to(dt)
+            C = torch.randn(Bt, T, G, N, generator=g, device=dev).to(dt)
+            name = f"ssd Bt={Bt} S={T} H={H} P={P} G={G} N={N} chunk={Q} " \
+                f"{dname}"
+            y, st = ssd(x, dtv, A, B, C, chunk=Q)
+            yr, sr = ssd_chunked(x, dtv, A, B, C, chunk=Q)
+            err = check_close(torch, "ssd", name, y, yr, dname)
+            err_st = check_close(torch, "ssd", name + " state", st, sr,
+                                 "state")
+            del y, st, yr, sr
+            ms = cuda_ms(torch, lambda: ssd(x, dtv, A, B, C, chunk=Q))
+            plain = cuda_ms(torch, lambda: ssd_chunked(x, dtv, A, B, C,
+                                                       chunk=Q), iters=3)
+            # each input read once, y and the f32 state written once
+            n_bytes = 2 * x.numel() * x.element_size() + 4 * dtv.numel() \
+                + 4 * H + (B.numel() + C.numel()) * B.element_size() \
+                + 4 * Bt * H * P * N
+            # per (b, h, chunk): C.B^T and W.xd over the causal (t, s)
+            # pairs, the inter-chunk term and the chunk state
+            pairs = Q * (Q + 1) // 2
+            flops = (2 * pairs * (N + P) + 4 * Q * P * N) * Bt * H * (T // Q)
+            bms, by = bound_ms(n_bytes, flops, dname)
+            print(f"  {name} err={err:.3e} state_err={err_st:.3e} "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} "
+                  f"({by}) library_ms=none", flush=True)
+            if (Bt, T, H, P, G, N, Q) == main and dname == "bfloat16":
+                table["ssd"] = dict(
+                    max_abs_err=err, state_max_abs_err=err_st, ms=ms,
+                    plain_ms=plain, bound_ms=bms, bound_by=by,
+                    library_ms=None, shape=[Bt, T, H, P, G, N, Q],
+                    dtype=dname, n_bytes=n_bytes, flops=flops)
+            n += 1
+    return n
 
 
 def _quantile_top(torch, x, q: float) -> float:
@@ -197,6 +286,26 @@ def _quantile_top(torch, x, q: float) -> float:
     return torch.topk(flat, k, sorted=False).values.min().item()
 
 
+def expected_launches(cfg) -> dict:
+    """Launches of each kernel in one prefill of ``cfg``'s model: two
+    norms per block (the Mamba2 block's pre-norm and its gated norm over
+    d_inner; the attention block's two norms), two per application of
+    the shared attention block, the final norm; one attention per
+    attention block; one SSD scan per Mamba2 block."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.hybrid_attn_every
+        return {"rmsnorm": 2 * cfg.n_layers + 2 * n_attn + 1,
+                "flash_attention": n_attn, "ssd": cfg.n_layers}
+    return {"rmsnorm": 2 * cfg.n_layers + 1,
+            "flash_attention": cfg.n_layers, "ssd": 0}
+
+
+def logits_dtype(torch, cfg):
+    """f32 for the dense model; the model's dtype (bf16) for the hybrid,
+    whose reference computes logits without an f32 accumulation type."""
+    return torch.float32 if cfg.family == "dense" else torch.bfloat16
+
+
 def phase_prefill(torch, dev, model, cfg, launches):
     from repro_torch.serve import make_prefill_step
     B, S = 4, 1024
@@ -205,6 +314,10 @@ def phase_prefill(torch, dev, model, cfg, launches):
     step = make_prefill_step(model, device=dev)
 
     def timed(n):
+        """Last logits, median wall seconds, peak device GiB (the model's
+        weights included)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         times = []
         for _ in range(n):
             torch.cuda.synchronize()
@@ -212,26 +325,33 @@ def phase_prefill(torch, dev, model, cfg, launches):
             out = step(tokens)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        return out, sorted(times)[len(times) // 2]
+        return out, sorted(times)[len(times) // 2], \
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
     model.use_kernels = True
     launches.reset()
-    logits, t_kernel = timed(4)
-    launches.read("prefill")
+    logits, t_kernel, gib_kernel = timed(4)
+    launches.read(f"{cfg.arch_id} prefill")
+    per_prefill = expected_launches(cfg)
+    got = {k: n / 4 for k, n in launches.phases[
+        f"{cfg.arch_id} prefill"].items()}
+    if got != per_prefill:
+        raise AssertionError(f"{cfg.arch_id}: launches per prefill {got}, "
+                             f"its layers give {per_prefill}")
     model.use_kernels = False
     before = launches.snapshot()
-    plain, t_plain = timed(2)
+    plain, t_plain, gib_plain = timed(2)
     model.use_kernels = True
     if launches.snapshot() != before:
         raise AssertionError("the plain path launched a kernel")
 
     if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
-            logits.dtype != torch.float32:
+            logits.dtype != logits_dtype(torch, cfg):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                              f"{logits.dtype}")
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not all finite")
-    diff = (logits - plain).abs()
+    diff = (logits.float() - plain.float()).abs()
     p999, dmax = _quantile_top(torch, diff, 0.999), diff.max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     del diff, plain, logits
@@ -239,10 +359,12 @@ def phase_prefill(torch, dev, model, cfg, launches):
     if not (p999 < 0.2 and dmax < 0.5 and agree > 0.9):
         raise AssertionError(f"prefill with kernels vs plain path: p99.9 "
                              f"|dlogit| {p999}, max {dmax}, top-1 {agree}")
-    emit("prefill", batch=B, seq=S, seconds=t_kernel,
+    emit(f"{cfg.arch_id} prefill", batch=B, seq=S, seconds=t_kernel,
          tokens_per_s=B * S / t_kernel, plain_seconds=t_plain,
+         peak_memory_gib=gib_kernel, plain_peak_memory_gib=gib_plain,
          p999_abs_dlogit=p999, max_abs_dlogit=dmax, top1_agreement=agree,
-         launches=launches.phases["prefill"])
+         launches_per_prefill=per_prefill,
+         launches=launches.phases[f"{cfg.arch_id} prefill"])
 
 
 def phase_serve(torch, dev, model, cfg, launches):
@@ -269,19 +391,27 @@ def phase_serve(torch, dev, model, cfg, launches):
     server.run_until_drained()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches.read("serve")
+    launches.read(f"{cfg.arch_id} serve")
     done = sorted(server.completed, key=lambda r: r.rid)
     if len(done) != n_req or any(len(r.out) != max_new for r in done):
         raise AssertionError(f"served {len(done)} of {n_req} requests; "
                              f"lengths {[len(r.out) for r in done]}")
     if not torch.stack(finite).all():
         raise AssertionError("a decode step produced a non-finite logit")
+    # a decode step runs every norm a prefill runs, and no attention kernel
+    # or SSD scan (decode attention and the SSD step are plain PyTorch)
+    per_step = expected_launches(cfg)["rmsnorm"]
+    want = {"rmsnorm": per_step * server.pos, "flash_attention": 0, "ssd": 0}
+    if launches.phases[f"{cfg.arch_id} serve"] != want:
+        raise AssertionError(f"{cfg.arch_id} serve launched "
+                             f"{launches.phases[f'{cfg.arch_id} serve']}, "
+                             f"its decode steps give {want}")
     out_tokens = n_req * max_new
-    emit("serve", requests=n_req, decode_steps=server.pos, seconds=seconds,
-         output_tokens_per_s=out_tokens / seconds,
+    emit(f"{cfg.arch_id} serve", requests=n_req, decode_steps=server.pos,
+         seconds=seconds, output_tokens_per_s=out_tokens / seconds,
          ms_per_decode_step=seconds / server.pos * 1e3,
          peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-         launches=launches.phases["serve"])
+         launches=launches.phases[f"{cfg.arch_id} serve"])
     del server
 
     # decode reproduces the prefill's logits on one short sequence (the
@@ -290,17 +420,17 @@ def phase_serve(torch, dev, model, cfg, launches):
     toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (1, S))).to(dev)
     with torch.inference_mode():
-        full = model.forward_logits(toks)
+        full = model.forward_logits(toks).float()
         cache = model.init_cache(1, S)
         dec = torch.cat([model.decode_step(cache, toks[:, t:t + 1], t)[0]
-                         for t in range(S)], dim=1)
+                         for t in range(S)], dim=1).float()
     diff = (full - dec).abs()
     p999, dmax = _quantile_top(torch, diff, 0.999), diff.max().item()
     agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
     if not (p999 < 0.2 and dmax < 0.5 and agree > 0.9):
         raise AssertionError(f"decode vs prefill: p99.9 {p999}, max {dmax}, "
                              f"top-1 {agree}")
-    emit("decode_consistency", seq=S, p999_abs_dlogit=p999,
+    emit(f"{cfg.arch_id} decode_consistency", seq=S, p999_abs_dlogit=p999,
          max_abs_dlogit=dmax, top1_agreement=agree)
 
 
@@ -339,7 +469,7 @@ def phase_profile(torch, dev, model, cfg):
                     + us / 1e3 / n
         device_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        emit(f"profile_{name}",
+        emit(f"{cfg.arch_id} profile_{name}",
              device_ms=device_ms if device_ms else "not measured",
              profiled_wall_ms=wall_ms,
              top_kernels_ms={k: round(v, 4) for k, v in top})
@@ -390,22 +520,34 @@ def main() -> int:
     phase_build(torch)
     table = phase_kernels(torch, dev)
 
-    cfg = get_config("llama3.2-1b")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=SEED)
-    torch.cuda.synchronize()
-    emit("init", arch=cfg.arch_id, seconds=time.perf_counter() - t0,
-         params=sum(p.numel() for p in model.parameters()))
     launches = Launches(kernels)
-    phase_prefill(torch, dev, model, cfg, launches)
-    phase_serve(torch, dev, model, cfg, launches)
-    phase_profile(torch, dev, model, cfg)
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=SEED)
+        torch.cuda.synchronize()
+        emit(f"{arch} init", arch=arch, seconds=time.perf_counter() - t0,
+             params=sum(p.numel() for p in model.parameters()))
+        phase_prefill(torch, dev, model, cfg, launches)
+        phase_serve(torch, dev, model, cfg, launches)
+        phase_profile(torch, dev, model, cfg)
+        # every kernel of this path went through its launches
+        path = {k: sum(p[k] for ph, p in launches.phases.items()
+                       if ph.startswith(arch + " "))
+                for k, n in expected_launches(cfg).items() if n}
+        if not all(path.values()):
+            raise AssertionError(f"{arch}: a kernel of its path was never "
+                                 f"launched: {path}")
+        del model
+        torch.cuda.empty_cache()
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),
                "flash_attention": (
                    "src/repro_torch/kernels/flash_attention/kernel.cu",
-                   "src/repro/kernels/flash_attention/kernel.py:78")}
+                   "src/repro/kernels/flash_attention/kernel.py:78"),
+               "ssd": ("src/repro_torch/kernels/mamba_scan/kernel.cu",
+                       "src/repro/kernels/mamba_scan/kernel.py:72")}
     rows = []
     for k in kernels:
         total = sum(p[k.name] for p in launches.phases.values())

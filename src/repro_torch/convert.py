@@ -1,9 +1,13 @@
 """Weight bridge: the JAX package's parameter tree -> the port's state dict.
 
 ``params_from_jax`` takes the tree as numpy arrays
-(``jax.tree.map(np.asarray, model.init(key))``) and returns a state dict for
-``TransformerLM.load_state_dict``.  The leading layer axis of ``blocks`` is
-un-stacked into ``blocks.<i>.<path>``.  Weights keep their (d_in, d_out)
+(``jax.tree.map(np.asarray, model.init(key))``) and the config's family,
+and returns a state dict for the port's model of that family.  Every
+stacked subtree is un-stacked over as many leading axes as the family
+stacks it: the dense ``blocks`` over one (``blocks.<i>.<path>``), the
+hybrid ``blocks`` over two (``blocks.<i>.<j>.<path>``, super-block then
+block) and its ``tail`` over one; ``shared_attn``, ``embed`` and
+``final_norm`` cross as they are.  Weights keep their (d_in, d_out)
 layout: the port computes ``x @ w`` as the JAX package does, so nothing is
 transposed.  Values are carried bit for bit.
 """
@@ -34,14 +38,28 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, val
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+# leading axes each family stacks its subtrees over
+STACKED_AXES = {"dense": {"blocks": 1},
+                "hybrid": {"blocks": 2, "tail": 1}}
+
+
+def _unstack(t: torch.Tensor, n_axes: int):
+    """(index path, slice) over the first ``n_axes`` axes of ``t``."""
+    if n_axes == 0:
+        yield "", t
+        return
+    for i in range(t.shape[0]):
+        for rest, sub in _unstack(t[i], n_axes - 1):
+            yield f"{i}.{rest}", sub
+
+
+def params_from_jax(tree: Mapping[str, Any],
+                    family: str = "dense") -> Dict[str, torch.Tensor]:
+    stacked = STACKED_AXES[family]
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree):
         t = to_tensor(leaf)
-        if path.startswith("blocks."):
-            rest = path[len("blocks."):]
-            for i in range(t.shape[0]):
-                state[f"blocks.{i}.{rest}"] = t[i]
-        else:
-            state[path] = t
+        top, _, rest = path.partition(".")
+        for index, sub in _unstack(t, stacked.get(top, 0)):
+            state[f"{top}.{index}{rest}" if index else path] = sub
     return state

@@ -2,7 +2,7 @@
 
 Each kernel's ``kernel.cu`` has a plain C entry point.  ``binding.cpp``, the
 only source that includes ``torch/extension.h``, wraps each entry point as a
-function on tensors.  ``torch.utils.cpp_extension.load`` compiles the three
+function on tensors.  ``torch.utils.cpp_extension.load`` compiles the
 sources for ``sm_90a`` into one extension, ninja running one compiler per
 source in parallel.  The binding is a ``.cpp`` for the host compiler rather
 than a ``.cu`` for nvcc: on an H100 machine with 8 cores (torch 2.11, CUDA
@@ -21,7 +21,7 @@ from typing import List
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_ext"
-KERNELS = ("rmsnorm", "flash_attention")       # sources: <name>/kernel.cu
+KERNELS = ("rmsnorm", "flash_attention", "mamba_scan")  # <name>/kernel.cu
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _ext = None
@@ -73,5 +73,6 @@ def extension():
 
 def all_kernels() -> List[Kernel]:
     from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION
+    from repro_torch.kernels.mamba_scan.ops import SSD
     from repro_torch.kernels.rmsnorm.ops import RMSNORM
-    return [RMSNORM, FLASH_ATTENTION]
+    return [RMSNORM, FLASH_ATTENTION, SSD]

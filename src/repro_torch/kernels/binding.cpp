@@ -5,6 +5,7 @@
 // in <name>/ops.py check device, dtype, shape and contiguity first.
 
 #include <cmath>
+#include <tuple>
 
 #include <c10/cuda/CUDAStream.h>
 #include <torch/extension.h>
@@ -17,6 +18,10 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
                                        int H, int Kv, int D, int causal,
                                        float scale, float softcap, int dtype,
                                        void* stream);
+extern "C" int ssd_forward(const void* x, const float* dt, const float* A,
+                           const void* B, const void* C, void* y,
+                           float* state, int Bt, int S, int H, int G, int P,
+                           int N, int Q, int dtype, void* stream);
 
 namespace {
 
@@ -62,10 +67,33 @@ torch::Tensor flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   return out;
 }
 
+std::tuple<torch::Tensor, torch::Tensor> ssd(const torch::Tensor& x,
+                                             const torch::Tensor& dt,
+                                             const torch::Tensor& A,
+                                             const torch::Tensor& B,
+                                             const torch::Tensor& C,
+                                             int64_t chunk) {
+  auto y = torch::empty_like(x);
+  const int64_t Bt = x.size(0), S = x.size(1), H = x.size(2), P = x.size(3);
+  const int64_t G = B.size(2), N = B.size(3);
+  auto state = torch::empty({Bt, H, P, N}, x.options().dtype(torch::kFloat));
+  const int err = ssd_forward(
+      x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(), B.data_ptr(),
+      C.data_ptr(), y.data_ptr(), state.data_ptr<float>(),
+      static_cast<int>(Bt), static_cast<int>(S), static_cast<int>(H),
+      static_cast<int>(G), static_cast<int>(P), static_cast<int>(N),
+      static_cast<int>(chunk), dtype_code(x), stream_of(x));
+  TORCH_CHECK(err == 0, "ssd kernel launch failed: cudaError ", err);
+  return {y, state};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rmsnorm", &rmsnorm, "RMSNorm of the rows of x (..., D)");
   m.def("flash_attention", &flash_attention,
         "GQA flash attention forward, q (B,S,H,D), k/v (B,S,Kv,D)");
+  m.def("ssd", &ssd,
+        "Mamba2 SSD chunked scan, x (Bt,S,H,P), dt (Bt,S,H), A (H,), "
+        "B/C (Bt,S,G,N) -> (y, final state (Bt,H,P,N) f32)");
 }

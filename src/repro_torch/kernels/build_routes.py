@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.kernels.build_routes
 
 Run it on a machine with the card and ``nvcc``.  Each route builds the same
-two ``kernel.cu`` from nothing, into a fresh directory under
+``kernel.cu`` of every kernel from nothing, into a fresh directory under
 ``build/build_routes/``, and is held against the first on one small input:
 
   load_cpp  the port's route (``_build.extension``):

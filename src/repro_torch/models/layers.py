@@ -11,7 +11,7 @@ version.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -202,3 +202,26 @@ def mlp_apply(x: torch.Tensor, p: MLP, act: str) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
     return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal convolution (Mamba2's short conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv in x's dtype.  x: (B, L, C); w: (C, K).
+
+    ``state`` (B, K-1, C), if given, is prepended in place of the zero
+    padding (decode path).  The result is contiguous: the einsum may
+    return a permuted layout, and the SSD kernel reads (B, L, C) rows.
+    """
+    K = w.shape[1]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], K - 1) + tuple(x.shape[2:]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                     # (B, L+K-1, C)
+    n = x.shape[1]
+    stack = torch.stack([xp[:, i:i + n] for i in range(K)], dim=-1)
+    return torch.einsum("blck,ck->blc", stack, w.to(x.dtype)).contiguous()

@@ -3,17 +3,21 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.zamba import ZambaLM
 
 _CONFIG_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
+
+_MODELS = {"dense": TransformerLM, "hybrid": ZambaLM}
 
 # the JAX package's other architectures, and the ROADMAP.md item that ports
 # each one
@@ -25,7 +29,6 @@ _NOT_PORTED = {
     "stablelm-1.6b": "queue 1 item 10 (dense variants)",
     "qwen2-moe-a2.7b": "queue 1 item 10 (MoE)",
     "deepseek-v2-lite-16b": "queue 1 item 10 (MLA, MoE)",
-    "zamba2-1.2b": "queue 1 item 10 and kernel K3 (SSD scan)",
     "xlstm-125m": "queue 1 item 10 and kernel K4 (mLSTM)",
 }
 
@@ -43,11 +46,11 @@ def get_config(arch_id: str) -> ArchConfig:
 
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
-    """A tiny same-family config for CPU tests: the dense-family arithmetic
-    of the JAX package's ``reduced_config``."""
-    return dataclasses.replace(
-        cfg,
-        n_layers=min(cfg.n_layers, 4),
+    """A tiny same-family config for CPU tests: the dense and hybrid
+    arithmetic of the JAX package's ``reduced_config``."""
+    hybrid = cfg.family == "hybrid"
+    kw = dict(
+        n_layers=min(cfg.n_layers, 8 if hybrid else 4),
         d_model=128,
         n_heads=4,
         n_kv_heads=(min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads
@@ -56,6 +59,12 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         vocab_size=512,
         head_dim=0,
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32,
+                                        chunk=32)
+    if cfg.hybrid_attn_every:
+        kw["hybrid_attn_every"] = 3
+    return dataclasses.replace(cfg, **kw)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -79,12 +88,17 @@ def check_on_device(model: torch.nn.Module, device: torch.device) -> None:
 
 def build_model(cfg: ArchConfig, *, device=None,
                 dtype: torch.dtype = L.DEFAULT_DTYPE,
-                seed: Optional[int] = 0) -> TransformerLM:
-    """The model for ``cfg`` on ``device`` (the card by default), with
-    weights drawn from ``seed`` by a ``torch.Generator`` on that device;
-    ``seed=None`` leaves them uninitialised for ``load_state_dict``."""
+                seed: Optional[int] = 0) -> Union[TransformerLM, ZambaLM]:
+    """The model of ``cfg``'s family on ``device`` (the card by default),
+    with weights drawn from ``seed`` by a ``torch.Generator`` on that
+    device; ``seed=None`` leaves them uninitialised for
+    ``load_state_dict``."""
+    if cfg.family not in _MODELS:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
+            f"item 10")
     dev = resolve_device(device)
-    model = TransformerLM(cfg, device=dev, dtype=dtype)
+    model = _MODELS[cfg.family](cfg, device=dev, dtype=dtype)
     if seed is not None:
         model.init(torch.Generator(device=dev).manual_seed(seed))
     return model

@@ -44,6 +44,17 @@ def layer_apply(x, p: Block, cfg: ArchConfig, *, positions,
     return x + L.mlp_apply(h2, p.ffn, cfg.act)
 
 
+def layer_decode(x, p: Block, cfg: ArchConfig, k_cache, v_cache, pos: int,
+                 *, kernels: bool = True) -> torch.Tensor:
+    """One-token step of a block; writes its K/V entry into the caches
+    (B, S, Kv, hd) in place."""
+    h = L.norm_apply(x, p.attn_norm, cfg.norm_eps, kernels=kernels)
+    a, _, _ = A.gqa_decode(h, p.attn, cfg, k_cache, v_cache, pos)
+    x = x + a
+    h2 = L.norm_apply(x, p.ffn_norm, cfg.norm_eps, kernels=kernels)
+    return x + L.mlp_apply(h2, p.ffn, cfg.act)
+
+
 class TransformerLM(nn.Module):
     """Dense transformer LM with tied embeddings; weights in (d_in, d_out)
     layout."""
@@ -125,20 +136,9 @@ class TransformerLM(nn.Module):
         the cache is updated in place."""
         cfg = self.cfg
         x = self.embed[tokens]
-        x = self._decode_gqa(cache, x, pos)
+        for i, blk in enumerate(self.blocks):
+            x = layer_decode(x, blk, cfg, cache["k"][i], cache["v"][i], pos,
+                             kernels=self.use_kernels)
         x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return self._logits(x), cache
-
-    def _decode_gqa(self, cache, x, pos: int):
-        cfg = self.cfg
-        for i, blk in enumerate(self.blocks):
-            h = L.norm_apply(x, blk.attn_norm, cfg.norm_eps,
-                             kernels=self.use_kernels)
-            a, _, _ = A.gqa_decode(h, blk.attn, cfg, cache["k"][i],
-                                   cache["v"][i], pos)
-            x = x + a
-            h2 = L.norm_apply(x, blk.ffn_norm, cfg.norm_eps,
-                              kernels=self.use_kernels)
-            x = x + L.mlp_apply(h2, blk.ffn, cfg.act)
-        return x

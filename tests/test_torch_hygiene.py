@@ -9,8 +9,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch.models.registry import build_model, get_config, \
-    reduced_config
+from repro_torch.models.registry import ARCH_IDS, _NOT_PORTED, \
+    build_model, get_config, reduced_config
 from repro_torch.serve import BatchedServer, make_prefill_step, \
     make_serve_step
 
@@ -59,25 +59,40 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_build_model_without_device_raises_without_card(no_cuda):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_build_model_without_device_raises_without_card(no_cuda, arch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(reduced_config(get_config("llama3.2-1b")))
+        build_model(reduced_config(get_config(arch)))
 
 
-def test_entry_points_without_device_raise_without_card(no_cuda):
-    model = build_model(reduced_config(get_config("llama3.2-1b")),
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_entry_points_without_device_raise_without_card(no_cuda, arch):
+    model = build_model(reduced_config(get_config(arch)),
                         device="cpu", seed=0)
     for entry in (make_prefill_step, make_serve_step, BatchedServer):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(model)
 
 
-def test_launcher_without_device_raises_without_card(no_cuda):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_launcher_without_device_raises_without_card(no_cuda, arch):
     from repro_torch.launch.serve import main
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["--requests", "1"])
+        main(["--arch", arch, "--requests", "1"])
+
+
+def test_launcher_serves_each_arch_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main
+    for arch in ARCH_IDS:
+        main(["--arch", arch, "--device", "cpu", "--requests", "2",
+              "--max-new", "3"])
+        lines = capsys.readouterr().out.splitlines()
+        assert [ln.split(":")[0] for ln in lines] == ["request 0",
+                                                       "request 1"]
 
 
 def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("zamba2-1.2b")
+    assert "zamba2-1.2b" not in _NOT_PORTED
+    for arch in _NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_config(arch)

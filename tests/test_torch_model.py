@@ -61,22 +61,56 @@ def test_untied_embeddings_are_not_ported():
         build_model(cfg, device="cpu")
 
 
-def test_params_from_jax_bit_exact(jax_side):
-    model, params = jax_side
+def _hybrid_pairs(state, tree):
+    """Sample (port tensor, JAX leaf) pairs of the hybrid tree: blocks
+    stacked over (n_super, every), tail over n_tail, shared_attn as is."""
+    n_super, every = tree["blocks"]["mamba"]["wz"].shape[:2]
+    n_tail = tree["tail"]["mamba"]["wz"].shape[0]
+    pairs = [(state["shared_attn.attn.wq"], tree["shared_attn"]["attn"]["wq"]),
+             (state["shared_attn.ffn_norm.w"],
+              tree["shared_attn"]["ffn_norm"]["w"])]
+    for i in range(n_super):
+        for j in range(every):
+            pairs += [(state[f"blocks.{i}.{j}.mamba.{k}"],
+                       tree["blocks"]["mamba"][k][i, j])
+                      for k in ("wz", "conv_x", "A_log", "dt_bias")]
+            pairs.append((state[f"blocks.{i}.{j}.mamba.norm.w"],
+                          tree["blocks"]["mamba"]["norm"]["w"][i, j]))
+    for i in range(n_tail):
+        pairs += [(state[f"tail.{i}.mamba.out"],
+                   tree["tail"]["mamba"]["out"][i]),
+                  (state[f"tail.{i}.norm.w"], tree["tail"]["norm"]["w"][i])]
+    # embed, final norm, 9 shared-attention leaves, 14 leaves per block
+    n_entries = 2 + 9 + (n_super * every + n_tail) * 14
+    return pairs, n_entries
+
+
+def _dense_pairs(state, tree):
+    n_layers = tree["blocks"]["attn"]["wq"].shape[0]
+    pairs = []
+    for i in range(n_layers):
+        pairs += [(state[f"blocks.{i}.attn.wq"],
+                   tree["blocks"]["attn"]["wq"][i]),
+                  (state[f"blocks.{i}.ffn.w_gate"],
+                   tree["blocks"]["ffn"]["w_gate"][i]),
+                  (state[f"blocks.{i}.ffn_norm.w"],
+                   tree["blocks"]["ffn_norm"]["w"][i])]
+    return pairs, 2 + n_layers * 9                # embed, final norm
+
+
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-1.2b"])
+def test_params_from_jax_bit_exact(arch):
+    jcfg = jax_reduced_config(jax_get_config(arch))
+    params = jax_build_model(jcfg, remat=False).init(jax.random.key(3))
+    cfg = reduced_config(get_config(arch))
     for dtype in (jnp.bfloat16, jnp.float32):
         tree = jax.tree.map(np.asarray, _cast(params, dtype))
-        state = params_from_jax(tree)
-        n_layers = tree["blocks"]["attn"]["wq"].shape[0]
-        assert len(state) == 2 + n_layers * 9       # embed, final norm
-        pairs = [(state["embed"], tree["embed"]),
-                 (state["final_norm.w"], tree["final_norm"]["w"])]
-        for i in range(n_layers):
-            pairs += [(state[f"blocks.{i}.attn.wq"],
-                       tree["blocks"]["attn"]["wq"][i]),
-                      (state[f"blocks.{i}.ffn.w_gate"],
-                       tree["blocks"]["ffn"]["w_gate"][i]),
-                      (state[f"blocks.{i}.ffn_norm.w"],
-                       tree["blocks"]["ffn_norm"]["w"][i])]
+        state = params_from_jax(tree, cfg.family)
+        pairs, n_entries = (_hybrid_pairs if cfg.family == "hybrid"
+                            else _dense_pairs)(state, tree)
+        assert len(state) == n_entries
+        pairs += [(state["embed"], tree["embed"]),
+                  (state["final_norm.w"], tree["final_norm"]["w"])]
         for t, a in pairs:
             assert tuple(t.shape) == a.shape
             if a.dtype.name == "bfloat16":
@@ -87,8 +121,9 @@ def test_params_from_jax_bit_exact(jax_side):
                 assert t.dtype == torch.float32
                 np.testing.assert_array_equal(t.numpy(), a)
         # and the model takes every entry, with nothing missing
-        _port(_cast(params, dtype), torch.bfloat16 if dtype == jnp.bfloat16
-              else torch.float32)
+        tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+        model = build_model(cfg, device="cpu", dtype=tdtype, seed=None)
+        model.load_state_dict(state)
 
 
 def _forward_pair(jax_side, jdtype, tdtype):

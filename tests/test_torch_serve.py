@@ -1,12 +1,15 @@
 """The port's BatchedServer against the JAX package's on the request set of
-examples/serve_decode.py: 6 requests, max_batch 4, max_seq 64.
+examples/serve_decode.py: 6 requests, max_batch 4, max_seq 64, for the
+dense and the hybrid model.
 
 Both sides run the same weights cast to f32, so greedy tokens can be held
-equal; the KV cache stays bf16 on both sides, as the JAX package makes it.
+equal; the KV caches (and the hybrid's conv states) stay bf16 on both
+sides, as the JAX package makes them.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.models.registry import build_model as jax_build_model
@@ -26,8 +29,9 @@ def _requests(vocab):
              .astype(np.int32)) for rid in range(6)]
 
 
-def test_batched_server_tokens_equal_reference():
-    jcfg = jax_reduced_config(jax_get_config("llama3.2-1b"))
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+def test_batched_server_tokens_equal_reference(arch):
+    jcfg = jax_reduced_config(jax_get_config(arch))
     jmodel = jax_build_model(jcfg, remat=False)
     params = jax.tree.map(lambda a: a.astype(jnp.float32),
                           jmodel.init(jax.random.key(0)))
@@ -36,11 +40,13 @@ def test_batched_server_tokens_equal_reference():
         ref.submit(JaxRequest(rid, prompt, max_new=8))
     ref.run_until_drained()
 
-    model = build_model(reduced_config(get_config("llama3.2-1b")),
-                        device="cpu", dtype=torch.float32, seed=None)
-    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    cfg = reduced_config(get_config(arch))
+    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=None)
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
+                                          cfg.family))
     server = BatchedServer(model, max_batch=4, max_seq=64, device="cpu")
-    assert server.cache["k"].dtype == torch.bfloat16
+    kv = server.cache["k" if cfg.family == "dense" else "attn_k"]
+    assert kv.dtype == torch.bfloat16
     for rid, prompt in _requests(jcfg.vocab_size):
         server.submit(Request(rid, prompt, max_new=8))
     server.run_until_drained()
