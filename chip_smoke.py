@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one ``phase <name>: {...}`` line:
+Everything it prints also goes to ``chiprun_out/chip_smoke.log`` in the
+checkout.  Phases, each printing one ``phase <name>: {...}`` line:
 
 1. build    -- compile every CUDA kernel of the serving paths and their
                binding from the sources in this checkout, with
@@ -14,23 +15,29 @@ Phases, each printing one ``phase <name>: {...}`` line:
                time, the plain version's time and the time of the library
                call for the same function where there is one (a yardstick
                only; the port never calls it).
-3. per model, llama3.2-1b (dense) then zamba2-1.2b (hybrid: Mamba2 blocks
-   and a shared attention block), each at its published widths and full
-   depth, random weights from a seed, bf16:
+3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
+   a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
+   each at its published widths and full depth, random weights from a
+   seed, bf16:
    init     -- build the model on the card.
    prefill  -- B=4, S=1024 through ``make_prefill_step`` with the kernels,
                against the same model and weights on the plain path.
    serve    -- ``BatchedServer``, max_batch 8, max_seq 1024, 16 requests of
                8-64 prompt tokens and 32 new tokens each; plus decode
                against prefill logits on one sequence of 64 tokens.
-   profile  -- device time by kernel of one prefill and one decode step.
+   profile  -- device time by kernel of one prefill and one decode step
+               (and, for xlstm-125m, of one sLSTM block's prefill).
 
-Launch counts are set to 0 just before each path's prefill and serve
-phases and read just after; the run fails if a kernel of a path was never
-launched on it, or if a prefill launched other counts than its model's
-layers give.  The line before the last is the kernel table as JSON; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero.
+Logits are held to the bound of tests/test_decode_consistency.py; where
+bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
+comparison is made in f32 on the same weights and must pass whole, and the
+bf16 pair must lie closer together than the bf16 plain logits lie to the
+f32 ones; all are reported.  Launch counts are set to 0 just before each
+path's prefill and serve phases and read just after; the run fails if a
+kernel of a path was never launched on it, or if a prefill or a decode step
+launched other counts than its model's layers give.  The line before the
+last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 from __future__ import annotations
 
@@ -40,25 +47,32 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
+LOG = os.path.join(REPO, "chiprun_out", "chip_smoke.log")
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # each kernel against its plain version: tests/test_kernels.py's bounds
 # for the JAX package's kernel of the same function (K3's are those of
-# test_ssd_kernel_sweep; its final state is held at 1e-3)
+# test_ssd_kernel_sweep, its final state held at 1e-3; K4's those of
+# test_mlstm_kernel_sweep, n held at C's bound, bf16 h at _tol's bf16)
 _DENSE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
               "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 TOL = {"rmsnorm": _DENSE_TOL, "flash_attention": _DENSE_TOL,
        "ssd": {"float32": dict(rtol=2e-4, atol=2e-4),
                "bfloat16": dict(rtol=4e-2, atol=4e-2),
-               "state": dict(rtol=1e-3, atol=1e-3)}}
-ARCHS = ("llama3.2-1b", "zamba2-1.2b")
+               "state": dict(rtol=1e-3, atol=1e-3)},
+       "mlstm": {"float32": dict(rtol=5e-3, atol=5e-3),
+                 "bfloat16": dict(rtol=2e-2, atol=2e-2),
+                 "state": dict(rtol=1e-3, atol=1e-3),
+                 "m": dict(rtol=1e-4, atol=1e-4)}}
+ARCHS = ("llama3.2-1b", "zamba2-1.2b", "xlstm-125m")
 SEED = 0
 
 
@@ -131,9 +145,11 @@ def phase_kernels(torch, dev):
 
     # K1: llama's serving path runs (B*S, 2048) in prefill and
     # (max_batch, 2048) in decode; zamba2's adds the gated norm over
-    # d_inner, (B*S, 4096).  bf16 x with f32 weights
+    # d_inner, (B*S, 4096); xlstm-125m's the output norms of the mLSTM
+    # (d_inner 1536) and sLSTM (768) blocks.  bf16 x with f32 weights
     rms_cases = [(100, 96), (256, 512), (8, 2048), (4 * 1024, 2048),
-                 (8, 4096), (4 * 1024, 4096)]
+                 (8, 4096), (4 * 1024, 4096), (8, 1536), (4 * 1024, 1536),
+                 (8, 768), (4 * 1024, 768)]
     for R, D in rms_cases:
         for dname, dt in dts.items():
             x = torch.randn(R, D, generator=g, device=dev).to(dt)
@@ -157,7 +173,7 @@ def phase_kernels(torch, dev):
                         torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
                     table["rmsnorm"] = row
                 else:
-                    table["rmsnorm_d_inner"] = row
+                    table[f"rmsnorm_d{D}"] = row
 
     # K2: llama's prefill is B=4, S=1024, H:Kv=32:8, D=64, causal; zamba2's
     # shared attention the same at 32:32
@@ -218,9 +234,10 @@ def phase_kernels(torch, dev):
             table[main_cases[case]] = row
 
     n_ssd = ssd_cases(torch, dev, g, dts, table)
+    n_mlstm = mlstm_cases(torch, dev, g, dts, table)
     emit("kernels", cases_rmsnorm=2 * len(rms_cases),
          cases_flash_attention=len(cases), cases_ssd=n_ssd,
-         main_shapes=table)
+         cases_mlstm=n_mlstm, main_shapes=table)
     return table
 
 
@@ -278,6 +295,71 @@ def ssd_cases(torch, dev, g, dts, table) -> int:
     return n
 
 
+def mlstm_cases(torch, dev, g, dts, table) -> int:
+    """K4 against its plain version: the JAX sweep's shapes in f32
+    (tests/test_kernels.py::test_mlstm_kernel_sweep), xlstm-125m's prefill
+    (B 4, S 1024, 4 heads of 384, chunk 256) in f32 and bf16, both with the
+    sweep's inputs (q, k, v normal, i 2 normal, f 2 normal + 3), and
+    constant gates at |log gate| = 5 in each sign combination at the
+    serving width over two chunks, where h must be finite
+    (test_mlstm_gate_stability_property).  No PyTorch call computes an
+    mLSTM, so there is no library time."""
+    from repro_torch.kernels.mlstm.ops import mlstm
+    from repro_torch.kernels.mlstm.ref import mlstm_chunked
+    main = (4, 1024, 4, 384, 256)
+    cases = [((2, 128, 2, 32, 32), "float32", None),
+             ((2, 64, 4, 16, 16), "float32", None),
+             ((2, 96, 2, 64, 32), "float32", None),
+             (main, "float32", None), (main, "bfloat16", None)]
+    cases += [((1, 512, 4, 384, 256), "float32", (log_f, log_i))
+              for log_f in (5.0, -5.0) for log_i in (5.0, -5.0)]
+    for (Bt, T, H, D, Q), dname, const in cases:
+        dt = dts[dname]
+        q, k, v = (torch.randn(Bt, T, H, D, generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        if const is None:
+            i_raw = torch.randn(Bt, T, H, generator=g, device=dev) * 2
+            f_raw = torch.randn(Bt, T, H, generator=g, device=dev) * 2 + 3
+            name = f"mlstm B={Bt} S={T} H={H} D={D} chunk={Q} {dname}"
+        else:
+            f_raw = torch.full((Bt, T, H), const[0], device=dev)
+            i_raw = torch.full((Bt, T, H), const[1], device=dev)
+            name = f"mlstm B={Bt} S={T} H={H} D={D} chunk={Q} {dname} " \
+                f"gates f={const[0]} i={const[1]}"
+        h, (C, n, m) = mlstm(q, k, v, i_raw, f_raw, chunk=Q)
+        hr, (Cr, nr, mr) = mlstm_chunked(q, k, v, i_raw, f_raw, chunk=Q)
+        if not torch.isfinite(h).all():
+            raise AssertionError(f"{name}: h is not finite")
+        err = check_close(torch, "mlstm", name, h, hr, dname)
+        err_C = check_close(torch, "mlstm", name + " C", C, Cr, "state")
+        err_n = check_close(torch, "mlstm", name + " n", n, nr, "state")
+        err_m = check_close(torch, "mlstm", name + " m", m, mr, "m")
+        del h, C, n, m, hr, Cr, nr, mr
+        ms = cuda_ms(torch, lambda: mlstm(q, k, v, i_raw, f_raw, chunk=Q),
+                     iters=5)
+        plain = cuda_ms(torch, lambda: mlstm_chunked(q, k, v, i_raw, f_raw,
+                                                     chunk=Q), iters=3)
+        # q, k, v read and h written once, the f32 gates read, the f32
+        # final (C, n, m) written
+        n_bytes = 4 * q.numel() * q.element_size() + 4 * 2 * i_raw.numel() \
+            + 4 * Bt * H * (D * D + D + 1)
+        # per (b, h, chunk): q.k^T and P.v over the Q(Q+1)/2 causal pairs,
+        # q.C0 and the k^T v state update
+        pairs = Q * (Q + 1) // 2
+        flops = (4 * D * pairs + 4 * Q * D * D) * Bt * H * (T // Q)
+        bms, by = bound_ms(n_bytes, flops, dname)
+        print(f"  {name} err={err:.3e} C_err={err_C:.3e} n_err={err_n:.3e} "
+              f"m_err={err_m:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bms:.4f} ({by}) library_ms=none", flush=True)
+        if (Bt, T, H, D, Q) == main and dname == "bfloat16":
+            table["mlstm"] = dict(
+                max_abs_err=err, C_max_abs_err=err_C, n_max_abs_err=err_n,
+                m_max_abs_err=err_m, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None, shape=[Bt, T, H, D, Q],
+                dtype=dname, n_bytes=n_bytes, flops=flops)
+    return len(cases)
+
+
 def _quantile_top(torch, x, q: float) -> float:
     """Upper quantile of a large tensor (torch.quantile caps its input
     size): the smallest of the top (1 - q) share."""
@@ -287,23 +369,84 @@ def _quantile_top(torch, x, q: float) -> float:
 
 
 def expected_launches(cfg) -> dict:
-    """Launches of each kernel in one prefill of ``cfg``'s model: two
-    norms per block (the Mamba2 block's pre-norm and its gated norm over
-    d_inner; the attention block's two norms), two per application of
-    the shared attention block, the final norm; one attention per
-    attention block; one SSD scan per Mamba2 block."""
+    """Launches of each kernel in one prefill of ``cfg``'s model.  Dense:
+    two norms per layer and the final norm, one attention per layer.
+    Hybrid: two norms per Mamba2 block (its pre-norm and its gated norm
+    over d_inner), two per application of the shared attention block, the
+    final norm; one attention per application; one SSD scan per Mamba2
+    block.  ssm (xLSTM): one RMSNorm per block, its output norm (the block
+    and final norms are LayerNorms, plain PyTorch); one mLSTM per mLSTM
+    block."""
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.hybrid_attn_every
         return {"rmsnorm": 2 * cfg.n_layers + 2 * n_attn + 1,
-                "flash_attention": n_attn, "ssd": cfg.n_layers}
+                "flash_attention": n_attn, "ssd": cfg.n_layers, "mlstm": 0}
+    if cfg.family == "ssm":
+        n_slstm = cfg.n_layers // cfg.slstm_every
+        return {"rmsnorm": cfg.n_layers, "flash_attention": 0, "ssd": 0,
+                "mlstm": cfg.n_layers - n_slstm}
     return {"rmsnorm": 2 * cfg.n_layers + 1,
-            "flash_attention": cfg.n_layers, "ssd": 0}
+            "flash_attention": cfg.n_layers, "ssd": 0, "mlstm": 0}
 
 
 def logits_dtype(torch, cfg):
-    """f32 for the dense model; the model's dtype (bf16) for the hybrid,
-    whose reference computes logits without an f32 accumulation type."""
+    """f32 for the dense model; the model's dtype (bf16) for the hybrid and
+    the xLSTM, whose references compute logits without an f32 accumulation
+    type."""
     return torch.float32 if cfg.family == "dense" else torch.bfloat16
+
+
+def logit_stats(torch, a, b) -> dict:
+    """p99.9 and max |dlogit|, top-1 agreement, and the share of positions
+    whose two largest logits of ``b`` tie (bf16 rounds near-ties to ties)."""
+    diff = (a.float() - b.float()).abs()
+    top2 = torch.topk(b.float(), 2, dim=-1).values
+    return dict(p999_abs_dlogit=_quantile_top(torch, diff, 0.999),
+                max_abs_dlogit=diff.max().item(),
+                top1_agreement=(a.argmax(-1) == b.argmax(-1)).float()
+                .mean().item(),
+                tied_top2_share=(top2[..., 0] == top2[..., 1]).float()
+                .mean().item())
+
+
+def hold_logits(torch, what, a, b, f32_pair=None) -> dict:
+    """The bound of tests/test_decode_consistency.py (p99.9 |dlogit| < 0.2,
+    max < 0.5, top-1 > 0.9) on logits ``a`` against ``b``.
+
+    bf16 logits of the xLSTM carry the model's own rounding noise: in bf16
+    the plain path lies further from itself in f32 than that bound (and
+    the kernels' f32 arithmetic, ordered otherwise than the plain
+    version's, flips some bf16 roundings, which the layers amplify).
+    Where the bf16 comparison misses the bound and ``f32_pair`` is given,
+    the same comparison on ``f32_pair()`` (the same weights in f32, where
+    only the arithmetic differs) must pass it whole, and the bf16 pair must
+    lie closer together than the bf16 plain logits lie to the f32 ones (on
+    each of the three numbers); all three comparisons are returned."""
+    stats = logit_stats(torch, a, b)
+    if stats["p999_abs_dlogit"] < 0.2 and stats["max_abs_dlogit"] < 0.5 \
+            and stats["top1_agreement"] > 0.9:
+        return stats
+    if f32_pair is None:
+        raise AssertionError(f"{what}: {stats}")
+    a32, b32 = f32_pair()
+    s32 = logit_stats(torch, a32, b32)
+    rounding = logit_stats(torch, b, b32)
+    within = (stats["p999_abs_dlogit"] < rounding["p999_abs_dlogit"]
+              and stats["max_abs_dlogit"] < rounding["max_abs_dlogit"]
+              and stats["top1_agreement"] > rounding["top1_agreement"])
+    if not (s32["p999_abs_dlogit"] < 0.2 and s32["max_abs_dlogit"] < 0.5
+            and s32["top1_agreement"] > 0.9 and within):
+        raise AssertionError(f"{what}: bf16 {stats}, f32 {s32}, bf16 plain "
+                             f"vs f32 plain {rounding}")
+    return dict(stats, f32=s32, bf16_vs_f32=rounding)
+
+
+def f32_copy(torch, model, cfg, dev):
+    """The model with the same weights in f32."""
+    from repro_torch.models.registry import build_model
+    m32 = build_model(cfg, device=dev, dtype=torch.float32, seed=None)
+    m32.load_state_dict(model.state_dict())
+    return m32
 
 
 def phase_prefill(torch, dev, model, cfg, launches):
@@ -351,19 +494,22 @@ def phase_prefill(torch, dev, model, cfg, launches):
                              f"{logits.dtype}")
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not all finite")
-    diff = (logits.float() - plain.float()).abs()
-    p999, dmax = _quantile_top(torch, diff, 0.999), diff.max().item()
-    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    del diff, plain, logits
-    # the bound of tests/test_decode_consistency.py
-    if not (p999 < 0.2 and dmax < 0.5 and agree > 0.9):
-        raise AssertionError(f"prefill with kernels vs plain path: p99.9 "
-                             f"|dlogit| {p999}, max {dmax}, top-1 {agree}")
+
+    def f32_pair():
+        m32 = f32_copy(torch, model, cfg, dev)
+        step32 = make_prefill_step(m32, device=dev)
+        a = step32(tokens)
+        m32.use_kernels = False
+        return a, step32(tokens)
+
+    stats = hold_logits(torch, "prefill with kernels vs plain path", logits,
+                        plain, f32_pair if logits.dtype == torch.bfloat16
+                        else None)
+    del plain, logits
     emit(f"{cfg.arch_id} prefill", batch=B, seq=S, seconds=t_kernel,
          tokens_per_s=B * S / t_kernel, plain_seconds=t_plain,
          peak_memory_gib=gib_kernel, plain_peak_memory_gib=gib_plain,
-         p999_abs_dlogit=p999, max_abs_dlogit=dmax, top1_agreement=agree,
-         launches_per_prefill=per_prefill,
+         **stats, launches_per_prefill=per_prefill,
          launches=launches.phases[f"{cfg.arch_id} prefill"])
 
 
@@ -398,10 +544,12 @@ def phase_serve(torch, dev, model, cfg, launches):
                              f"lengths {[len(r.out) for r in done]}")
     if not torch.stack(finite).all():
         raise AssertionError("a decode step produced a non-finite logit")
-    # a decode step runs every norm a prefill runs, and no attention kernel
-    # or SSD scan (decode attention and the SSD step are plain PyTorch)
+    # a decode step runs every norm a prefill runs, and no attention
+    # kernel, SSD scan or mLSTM (decode attention, the SSD step and the
+    # mLSTM step are plain PyTorch)
     per_step = expected_launches(cfg)["rmsnorm"]
-    want = {"rmsnorm": per_step * server.pos, "flash_attention": 0, "ssd": 0}
+    want = {k: per_step * server.pos if k == "rmsnorm" else 0
+            for k in expected_launches(cfg)}
     if launches.phases[f"{cfg.arch_id} serve"] != want:
         raise AssertionError(f"{cfg.arch_id} serve launched "
                              f"{launches.phases[f'{cfg.arch_id} serve']}, "
@@ -419,24 +567,28 @@ def phase_serve(torch, dev, model, cfg, launches):
     S = 64
     toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (1, S))).to(dev)
-    with torch.inference_mode():
-        full = model.forward_logits(toks).float()
-        cache = model.init_cache(1, S)
-        dec = torch.cat([model.decode_step(cache, toks[:, t:t + 1], t)[0]
-                         for t in range(S)], dim=1).float()
-    diff = (full - dec).abs()
-    p999, dmax = _quantile_top(torch, diff, 0.999), diff.max().item()
-    agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
-    if not (p999 < 0.2 and dmax < 0.5 and agree > 0.9):
-        raise AssertionError(f"decode vs prefill: p99.9 {p999}, max {dmax}, "
-                             f"top-1 {agree}")
-    emit(f"{cfg.arch_id} decode_consistency", seq=S, p999_abs_dlogit=p999,
-         max_abs_dlogit=dmax, top1_agreement=agree)
+
+    def decode_pair(m):
+        """(decode step logits, prefill logits) of ``m`` on ``toks``."""
+        with torch.inference_mode():
+            full = m.forward_logits(toks)
+            cache = m.init_cache(1, S)
+            dec = torch.cat([m.decode_step(cache, toks[:, t:t + 1], t)[0]
+                             for t in range(S)], dim=1)
+        return dec, full
+
+    dec, full = decode_pair(model)
+    stats = hold_logits(torch, "decode vs prefill", dec, full,
+                        (lambda: decode_pair(f32_copy(torch, model, cfg,
+                                                      dev)))
+                        if dec.dtype == torch.bfloat16 else None)
+    emit(f"{cfg.arch_id} decode_consistency", seq=S, **stats)
 
 
 def phase_profile(torch, dev, model, cfg):
     """Device time by kernel for one prefill and one decode step at the
-    served shapes (torch.profiler; kernel times sum to the busy time)."""
+    served shapes (torch.profiler; kernel times sum to the busy time), and
+    for xlstm-125m one sLSTM block's prefill, a plain per-token loop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import make_prefill_step, make_serve_step
@@ -446,8 +598,22 @@ def phase_profile(torch, dev, model, cfg):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1024)))
     cache = model.init_cache(8, 1024)
     dtoks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1)))
-    for name, fn, n in (("prefill", lambda: prefill(toks), 2),
-                        ("decode_step", lambda: step(cache, dtoks, 100), 8)):
+    runs = [("prefill", lambda: prefill(toks), 2),
+            ("decode_step", lambda: step(cache, dtoks, 100), 8)]
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import slstm_block_apply
+        x = torch.randn(4, 1024, cfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED)).to(next(model.parameters()).dtype)
+
+        def slstm_block():
+            with torch.inference_mode():
+                return slstm_block_apply(x, model.blocks.slstm[0], cfg)
+
+        # its ~60k launches make a profiled prefill slow: profile one
+        runs = [("prefill", runs[0][1], 1), runs[1],
+                ("slstm_block", slstm_block, 1)]
+    for name, fn, n in runs:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -457,7 +623,7 @@ def phase_profile(torch, dev, model, cfg):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        by_kernel = {}
+        by_kernel, n_kernels = {}, 0
         for ev in prof.key_averages():
             # device-side events only: a CPU op's device time repeats the
             # time of the kernels it launched
@@ -467,11 +633,13 @@ def phase_profile(torch, dev, model, cfg):
             if us > 0:
                 by_kernel[ev.key[:48]] = by_kernel.get(ev.key[:48], 0.0) \
                     + us / 1e3 / n
+                n_kernels += ev.count
         device_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
         emit(f"{cfg.arch_id} profile_{name}",
              device_ms=device_ms if device_ms else "not measured",
              profiled_wall_ms=wall_ms,
+             device_kernels_per_call=n_kernels / n,
              top_kernels_ms={k: round(v, 4) for k, v in top})
 
 
@@ -493,6 +661,25 @@ class Launches:
         self.phases[phase] = self.snapshot()
 
 
+class Tee:
+    """Writes to each of its streams: the console and the log."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.streams[0], name)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -502,6 +689,20 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
+    os.makedirs(os.path.dirname(LOG), exist_ok=True)
+    out, err = sys.stdout, sys.stderr
+    with open(LOG, "w") as log:
+        sys.stdout, sys.stderr = Tee(out, log), Tee(err, log)
+        try:
+            return run(torch)
+        except Exception:     # reported, and the run exits non-zero
+            traceback.print_exc()
+            return 1
+        finally:
+            sys.stdout, sys.stderr = out, err
+
+
+def run(torch) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels._build import all_kernels
     from repro_torch.models.registry import build_model, get_config
@@ -547,7 +748,9 @@ def main() -> int:
                    "src/repro_torch/kernels/flash_attention/kernel.cu",
                    "src/repro/kernels/flash_attention/kernel.py:78"),
                "ssd": ("src/repro_torch/kernels/mamba_scan/kernel.cu",
-                       "src/repro/kernels/mamba_scan/kernel.py:72")}
+                       "src/repro/kernels/mamba_scan/kernel.py:72"),
+               "mlstm": ("src/repro_torch/kernels/mlstm/kernel.cu",
+                         "src/repro/kernels/mlstm/kernel.py:86")}
     rows = []
     for k in kernels:
         total = sum(p[k.name] for p in launches.phases.values())

@@ -1,8 +1,8 @@
 """Architecture configuration of the port.
 
 A copy of the fields of ``repro.configs.base.ArchConfig`` (and of its
-``SSMConfig``) that the dense and hybrid families read, so the port needs
-nothing of the JAX package.  Field names and defaults are the JAX
+``SSMConfig``) that the dense, hybrid and ssm (xLSTM) families read, so the
+port needs nothing of the JAX package.  Field names and defaults are the JAX
 package's.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                  # dense | hybrid (the ported families)
+    family: str                  # dense | hybrid | ssm (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +42,8 @@ class ArchConfig:
     head_dim: int = 0            # 0 -> d_model // n_heads
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0   # partial RoPE
+    use_rope: bool = True
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
@@ -50,6 +52,10 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): the shared attention block follows every N ssm blocks
     hybrid_attn_every: int = 0
+    # xlstm: every Nth block is an sLSTM (the rest mLSTM)
+    slstm_every: int = 0
+    # sub-quadratic (recurrent state)
+    sub_quadratic: bool = False
     source: str = ""
 
     @property

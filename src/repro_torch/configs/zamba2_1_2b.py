@@ -19,5 +19,6 @@ CONFIG = ArchConfig(
     ssm=SSMConfig(d_state=64, d_conv=4, expand=2, head_dim=64, chunk=256),
     hybrid_attn_every=6,
     tie_embeddings=True,
+    sub_quadratic=True,
     source="arXiv:2411.15242; hf",
 )

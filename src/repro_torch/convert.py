@@ -6,10 +6,11 @@ and returns a state dict for the port's model of that family.  Every
 stacked subtree is un-stacked over as many leading axes as the family
 stacks it: the dense ``blocks`` over one (``blocks.<i>.<path>``), the
 hybrid ``blocks`` over two (``blocks.<i>.<j>.<path>``, super-block then
-block) and its ``tail`` over one; ``shared_attn``, ``embed`` and
-``final_norm`` cross as they are.  Weights keep their (d_in, d_out)
-layout: the port computes ``x @ w`` as the JAX package does, so nothing is
-transposed.  Values are carried bit for bit.
+block) and its ``tail`` over one; the xLSTM's ``blocks.mlstm`` over two
+(``blocks.mlstm.<i>.<j>.<path>``), its ``blocks.slstm`` and ``tail`` over
+one; ``shared_attn``, ``embed`` and ``final_norm`` cross as they are.
+Weights keep their (d_in, d_out) layout: the port computes ``x @ w`` as the
+JAX package does, so nothing is transposed.  Values are carried bit for bit.
 """
 from __future__ import annotations
 
@@ -38,9 +39,10 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, val
 
 
-# leading axes each family stacks its subtrees over
+# leading axes each family stacks its subtrees over, by subtree path
 STACKED_AXES = {"dense": {"blocks": 1},
-                "hybrid": {"blocks": 2, "tail": 1}}
+                "hybrid": {"blocks": 2, "tail": 1},
+                "ssm": {"blocks.mlstm": 2, "blocks.slstm": 1, "tail": 1}}
 
 
 def _unstack(t: torch.Tensor, n_axes: int):
@@ -53,13 +55,25 @@ def _unstack(t: torch.Tensor, n_axes: int):
             yield f"{i}.{rest}", sub
 
 
+def _stacked_prefix(path: str, stacked: Mapping[str, int]) -> str:
+    """The stacked subtree ``path`` lies in, or "" when it lies in none."""
+    for prefix in stacked:
+        if path.startswith(prefix + "."):
+            return prefix
+    return ""
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     family: str = "dense") -> Dict[str, torch.Tensor]:
     stacked = STACKED_AXES[family]
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree):
         t = to_tensor(leaf)
-        top, _, rest = path.partition(".")
-        for index, sub in _unstack(t, stacked.get(top, 0)):
-            state[f"{top}.{index}{rest}" if index else path] = sub
+        prefix = _stacked_prefix(path, stacked)
+        if not prefix:
+            state[path] = t
+            continue
+        rest = path[len(prefix) + 1:]
+        for index, sub in _unstack(t, stacked[prefix]):
+            state[f"{prefix}.{index}{rest}"] = sub
     return state

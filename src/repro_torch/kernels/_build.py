@@ -21,7 +21,8 @@ from typing import List
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_ext"
-KERNELS = ("rmsnorm", "flash_attention", "mamba_scan")  # <name>/kernel.cu
+# <name>/kernel.cu
+KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "mlstm")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _ext = None
@@ -74,5 +75,6 @@ def extension():
 def all_kernels() -> List[Kernel]:
     from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION
     from repro_torch.kernels.mamba_scan.ops import SSD
+    from repro_torch.kernels.mlstm.ops import MLSTM
     from repro_torch.kernels.rmsnorm.ops import RMSNORM
-    return [RMSNORM, FLASH_ATTENTION, SSD]
+    return [RMSNORM, FLASH_ATTENTION, SSD, MLSTM]

@@ -22,6 +22,11 @@ extern "C" int ssd_forward(const void* x, const float* dt, const float* A,
                            const void* B, const void* C, void* y,
                            float* state, int Bt, int S, int H, int G, int P,
                            int N, int Q, int dtype, void* stream);
+extern "C" int mlstm_forward(const void* q, const void* k, const void* v,
+                             const float* i_raw, const float* f_raw,
+                             void* h, float* C, float* n, float* m, int B,
+                             int S, int H, int D, int Q, float scale,
+                             int dtype, void* stream);
 
 namespace {
 
@@ -87,6 +92,28 @@ std::tuple<torch::Tensor, torch::Tensor> ssd(const torch::Tensor& x,
   return {y, state};
 }
 
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor, torch::Tensor>
+mlstm(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+      const torch::Tensor& i_raw, const torch::Tensor& f_raw,
+      int64_t chunk) {
+  auto h = torch::empty_like(q);
+  const int64_t B = q.size(0), S = q.size(1), H = q.size(2), D = q.size(3);
+  const auto f32 = q.options().dtype(torch::kFloat);
+  auto C = torch::empty({B, H, D, D}, f32);
+  auto n = torch::empty({B, H, D}, f32);
+  auto m = torch::empty({B, H}, f32);
+  const int err = mlstm_forward(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), i_raw.data_ptr<float>(),
+      f_raw.data_ptr<float>(), h.data_ptr(), C.data_ptr<float>(),
+      n.data_ptr<float>(), m.data_ptr<float>(), static_cast<int>(B),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(D),
+      static_cast<int>(chunk),
+      static_cast<float>(1.0 / std::sqrt(double(D))), dtype_code(q),
+      stream_of(q));
+  TORCH_CHECK(err == 0, "mlstm kernel launch failed: cudaError ", err);
+  return {h, C, n, m};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -96,4 +123,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ssd", &ssd,
         "Mamba2 SSD chunked scan, x (Bt,S,H,P), dt (Bt,S,H), A (H,), "
         "B/C (Bt,S,G,N) -> (y, final state (Bt,H,P,N) f32)");
+  m.def("mlstm", &mlstm,
+        "chunked mLSTM, q/k/v (B,S,H,D), gates (B,S,H) f32 -> (h, C "
+        "(B,H,D,D), n (B,H,D), m (B,H)), the final carry in f32");
 }

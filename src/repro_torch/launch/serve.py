@@ -1,6 +1,7 @@
 """Serving launcher of the port:
-``python -m repro_torch.launch.serve --arch llama3.2-1b|zamba2-1.2b
-[--full-config] [--device cuda|cpu]``.
+``python -m repro_torch.launch.serve
+--arch llama3.2-1b|zamba2-1.2b|xlstm-125m [--full-config]
+[--device cuda|cpu]``.
 
 Runs the continuous-batching server on synthetic requests, on the card
 unless ``--device cpu`` is given.

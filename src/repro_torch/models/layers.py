@@ -11,7 +11,7 @@ version.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +38,11 @@ def _trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
-               dtype: torch.dtype = DEFAULT_DTYPE) -> torch.Tensor:
-    """Truncated normal in [-2, 2] times 1/sqrt(d_in), on the generator's
-    device."""
-    scale = 1.0 / math.sqrt(d_in)
+               dtype: torch.dtype = DEFAULT_DTYPE,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated normal in [-2, 2] times ``scale`` (1/sqrt(d_in) unless
+    given), on the generator's device."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return (_trunc_normal((d_in, d_out), generator) * scale).to(dtype)
 
 
@@ -67,6 +68,20 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
     return rmsnorm_ref(x, weight, eps)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor],
+              eps: float = 1e-5) -> torch.Tensor:
+    """f32 math with bias, result in x's dtype.  Plain PyTorch: the JAX
+    package has no kernel for it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 class RMSNorm(nn.Module):
     """Norm parameters: ``w`` (D,), always f32."""
 
@@ -76,9 +91,42 @@ class RMSNorm(nn.Module):
                                          device=device))
 
 
-def norm_apply(x: torch.Tensor, p: RMSNorm, eps: float, *,
-               kernels: bool = True) -> torch.Tensor:
-    return rmsnorm(x, p.w, eps, kernels=kernels)
+class LayerNorm(nn.Module):
+    """Norm parameters: ``w`` (D,) and ``b`` (D,), always f32."""
+
+    def __init__(self, d: int, *, device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(d, dtype=torch.float32,
+                                         device=device))
+        self.b = nn.Parameter(torch.zeros(d, dtype=torch.float32,
+                                          device=device))
+
+
+def make_norm(d: int, kind: str, *,
+              device=None) -> Union[RMSNorm, LayerNorm]:
+    """The norm module of ``kind`` (a config's ``norm``)."""
+    if kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm {kind!r}")
+    return (RMSNorm if kind == "rmsnorm" else LayerNorm)(d, device=device)
+
+
+def norm_apply(x: torch.Tensor, p: Union[RMSNorm, LayerNorm], kind: str,
+               eps: float, *, kernels: bool = True) -> torch.Tensor:
+    """RMSNorm (the kernel on CUDA tensors unless ``kernels`` is off) or
+    LayerNorm (plain), as the config's ``norm`` says."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, p.w, eps, kernels=kernels)
+    return layernorm(x, p.w, p.b, eps)
+
+
+@torch.no_grad()
+def init_norms(model: nn.Module) -> None:
+    """Every norm of ``model`` to w = 1 (and b = 0), as the JAX init."""
+    for norm in model.modules():
+        if isinstance(norm, (RMSNorm, LayerNorm)):
+            norm.w.fill_(1.0)
+        if isinstance(norm, LayerNorm):
+            norm.b.zero_()
 
 
 # ---------------------------------------------------------------------------

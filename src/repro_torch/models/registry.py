@@ -10,14 +10,16 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.xlstm import XLSTMLM
 from repro_torch.models.zamba import ZambaLM
 
 _CONFIG_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
-_MODELS = {"dense": TransformerLM, "hybrid": ZambaLM}
+_MODELS = {"dense": TransformerLM, "hybrid": ZambaLM, "ssm": XLSTMLM}
 
 # the JAX package's other architectures, and the ROADMAP.md item that ports
 # each one
@@ -29,7 +31,6 @@ _NOT_PORTED = {
     "stablelm-1.6b": "queue 1 item 10 (dense variants)",
     "qwen2-moe-a2.7b": "queue 1 item 10 (MoE)",
     "deepseek-v2-lite-16b": "queue 1 item 10 (MLA, MoE)",
-    "xlstm-125m": "queue 1 item 10 and kernel K4 (mLSTM)",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -46,11 +47,11 @@ def get_config(arch_id: str) -> ArchConfig:
 
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
-    """A tiny same-family config for CPU tests: the dense and hybrid
+    """A tiny same-family config for CPU tests: the dense, hybrid and ssm
     arithmetic of the JAX package's ``reduced_config``."""
-    hybrid = cfg.family == "hybrid"
+    recurrent = cfg.family in ("hybrid", "ssm")
     kw = dict(
-        n_layers=min(cfg.n_layers, 8 if hybrid else 4),
+        n_layers=min(cfg.n_layers, 8 if recurrent else 4),
         d_model=128,
         n_heads=4,
         n_kv_heads=(min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads
@@ -64,6 +65,9 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
                                         chunk=32)
     if cfg.hybrid_attn_every:
         kw["hybrid_attn_every"] = 3
+    if cfg.slstm_every:
+        kw["slstm_every"] = 4
+        kw["n_layers"] = 8
     return dataclasses.replace(cfg, **kw)
 
 
@@ -88,7 +92,8 @@ def check_on_device(model: torch.nn.Module, device: torch.device) -> None:
 
 def build_model(cfg: ArchConfig, *, device=None,
                 dtype: torch.dtype = L.DEFAULT_DTYPE,
-                seed: Optional[int] = 0) -> Union[TransformerLM, ZambaLM]:
+                seed: Optional[int] = 0
+                ) -> Union[TransformerLM, ZambaLM, XLSTMLM]:
     """The model of ``cfg``'s family on ``device`` (the card by default),
     with weights drawn from ``seed`` by a ``torch.Generator`` on that
     device; ``seed=None`` leaves them uninitialised for

@@ -29,18 +29,20 @@ class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
                  dtype: torch.dtype = L.DEFAULT_DTYPE):
         super().__init__()
-        self.attn_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.attn_norm = L.make_norm(cfg.d_model, cfg.norm, device=device)
         self.attn = A.GQA(cfg, device=device, dtype=dtype)
-        self.ffn_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.ffn_norm = L.make_norm(cfg.d_model, cfg.norm, device=device)
         self.ffn = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, device=device,
                          dtype=dtype)
 
 
 def layer_apply(x, p: Block, cfg: ArchConfig, *, positions,
                 kernels: bool = True) -> torch.Tensor:
-    h = L.norm_apply(x, p.attn_norm, cfg.norm_eps, kernels=kernels)
+    h = L.norm_apply(x, p.attn_norm, cfg.norm, cfg.norm_eps,
+                     kernels=kernels)
     x = x + A.gqa_apply(h, p.attn, cfg, positions=positions, kernels=kernels)
-    h2 = L.norm_apply(x, p.ffn_norm, cfg.norm_eps, kernels=kernels)
+    h2 = L.norm_apply(x, p.ffn_norm, cfg.norm, cfg.norm_eps,
+                     kernels=kernels)
     return x + L.mlp_apply(h2, p.ffn, cfg.act)
 
 
@@ -48,10 +50,12 @@ def layer_decode(x, p: Block, cfg: ArchConfig, k_cache, v_cache, pos: int,
                  *, kernels: bool = True) -> torch.Tensor:
     """One-token step of a block; writes its K/V entry into the caches
     (B, S, Kv, hd) in place."""
-    h = L.norm_apply(x, p.attn_norm, cfg.norm_eps, kernels=kernels)
+    h = L.norm_apply(x, p.attn_norm, cfg.norm, cfg.norm_eps,
+                     kernels=kernels)
     a, _, _ = A.gqa_decode(h, p.attn, cfg, k_cache, v_cache, pos)
     x = x + a
-    h2 = L.norm_apply(x, p.ffn_norm, cfg.norm_eps, kernels=kernels)
+    h2 = L.norm_apply(x, p.ffn_norm, cfg.norm, cfg.norm_eps,
+                     kernels=kernels)
     return x + L.mlp_apply(h2, p.ffn, cfg.act)
 
 
@@ -74,7 +78,7 @@ class TransformerLM(nn.Module):
         self.use_kernels = True
         self.embed = L.empty_param(cfg.vocab_size, cfg.d_model, dtype=dtype,
                                    device=device)
-        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.final_norm = L.make_norm(cfg.d_model, cfg.norm, device=device)
         self.blocks = nn.ModuleList(
             Block(cfg, device=device, dtype=dtype)
             for _ in range(cfg.n_layers))
@@ -85,9 +89,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         self.embed.copy_(L.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                       dtype=self.embed.dtype))
-        for norm in self.modules():
-            if isinstance(norm, L.RMSNorm):
-                norm.w.fill_(1.0)
+        L.init_norms(self)
         for blk in self.blocks:
             blk.attn.init(generator)
             blk.ffn.init(generator)
@@ -103,7 +105,7 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = layer_apply(x, blk, cfg, positions=positions,
                             kernels=self.use_kernels)
-        x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
+        x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return self._logits(x)
 
@@ -139,6 +141,6 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = layer_decode(x, blk, cfg, cache["k"][i], cache["v"][i], pos,
                              kernels=self.use_kernels)
-        x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
+        x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return self._logits(x), cache

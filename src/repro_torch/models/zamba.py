@@ -35,11 +35,11 @@ class MambaBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
                  dtype: torch.dtype = L.DEFAULT_DTYPE):
         super().__init__()
-        self.norm = L.RMSNorm(cfg.d_model, device=device)
+        self.norm = L.make_norm(cfg.d_model, cfg.norm, device=device)
         self.mamba = SSM.Mamba(cfg, device=device, dtype=dtype)
 
 
-def _cache_view(cache: Dict[str, torch.Tensor], *index) -> Dict[str,
+def cache_view(cache: Dict[str, torch.Tensor], *index) -> Dict[str,
                                                                 torch.Tensor]:
     """One block's slice of a stacked mamba cache, as views."""
     return {key: val[index] for key, val in cache.items()}
@@ -68,7 +68,7 @@ class ZambaLM(nn.Module):
 
         self.embed = L.empty_param(cfg.vocab_size, cfg.d_model, dtype=dtype,
                                    device=device)
-        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.final_norm = L.make_norm(cfg.d_model, cfg.norm, device=device)
         self.blocks = nn.ModuleList(mamba_blocks(every)
                                     for _ in range(self.n_super))
         self.shared_attn = Block(cfg, device=device, dtype=dtype)
@@ -80,9 +80,7 @@ class ZambaLM(nn.Module):
         cfg = self.cfg
         self.embed.copy_(L.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                       dtype=self.embed.dtype))
-        for norm in self.modules():
-            if isinstance(norm, L.RMSNorm):
-                norm.w.fill_(1.0)
+        L.init_norms(self)
         for blk in self._mamba_blocks():
             blk.mamba.init(generator)
         self.shared_attn.attn.init(generator)
@@ -96,7 +94,7 @@ class ZambaLM(nn.Module):
 
     # ------------------------------------------------------------ forward
     def _mamba_block(self, x, blk: MambaBlock):
-        h = L.norm_apply(x, blk.norm, self.cfg.norm_eps,
+        h = L.norm_apply(x, blk.norm, self.cfg.norm, self.cfg.norm_eps,
                          kernels=self.use_kernels)
         return x + SSM.mamba_apply(h, blk.mamba, self.cfg,
                                    kernels=self.use_kernels)
@@ -113,7 +111,7 @@ class ZambaLM(nn.Module):
                             kernels=self.use_kernels)
         for blk in self.tail:
             x = self._mamba_block(x, blk)
-        x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
+        x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return x @ self.embed.t()
 
@@ -142,7 +140,7 @@ class ZambaLM(nn.Module):
         return cache
 
     def _mamba_decode(self, x, blk: MambaBlock, cache_blk):
-        h = L.norm_apply(x, blk.norm, self.cfg.norm_eps,
+        h = L.norm_apply(x, blk.norm, self.cfg.norm, self.cfg.norm_eps,
                          kernels=self.use_kernels)
         out, _ = SSM.mamba_decode(h, blk.mamba, self.cfg, cache_blk,
                                   kernels=self.use_kernels)
@@ -156,12 +154,12 @@ class ZambaLM(nn.Module):
         for i, group in enumerate(self.blocks):
             for j, blk in enumerate(group):
                 x = self._mamba_decode(x, blk,
-                                       _cache_view(cache["mamba"], i, j))
+                                       cache_view(cache["mamba"], i, j))
             x = layer_decode(x, self.shared_attn, cfg, cache["attn_k"][i],
                              cache["attn_v"][i], pos,
                              kernels=self.use_kernels)
         for i, blk in enumerate(self.tail):
-            x = self._mamba_decode(x, blk, _cache_view(cache["tail"], i))
-        x = L.norm_apply(x, self.final_norm, cfg.norm_eps,
+            x = self._mamba_decode(x, blk, cache_view(cache["tail"], i))
+        x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return x @ self.embed.t(), cache

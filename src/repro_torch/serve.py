@@ -7,17 +7,17 @@ batching over a fixed slot count with greedy sampling.  All three run on
 the card unless the caller passes ``device="cpu"``.
 
 They take any model of the registry (the dense ``TransformerLM``, the
-hybrid ``ZambaLM``) and know nothing of its cache's structure: the model
-makes the cache and its decode step updates it.
+hybrid ``ZambaLM``, the ``XLSTMLM``) and know nothing of its cache's
+structure: the model makes the cache and its decode step updates it.
 
 ``BatchedServer`` keeps the JAX server's behaviour, quirks included, so its
 tokens can be held against the reference: decode runs in lockstep on one
 global position; a request that takes over a slot does not reset that
 slot's cache (every row attends to ``arange(S) < pos + 1``, so it sees the
-previous occupant's KV entries, and a hybrid model's slot carries on from
-the previous occupant's SSM and conv states); empty slots feed token 0 and
-write to the cache; ``run_until_drained`` stops silently at
-``pos >= max_seq - 1``.
+previous occupant's KV entries, and a hybrid or xLSTM model's slot carries
+on from the previous occupant's recurrent and conv states); empty slots
+feed token 0 and write to the cache; ``run_until_drained`` stops silently
+at ``pos >= max_seq - 1``.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.models.registry import check_on_device, resolve_device
 def make_serve_step(model, *, device=None):
     """Returns step(cache, tokens (B,1), pos) -> (logits (B,1,V), cache);
     the cache is updated in place.  Logits are f32 for the dense model and
-    in the model's dtype for the hybrid one, as in the reference."""
+    in the model's dtype for the others, as in the reference."""
     dev = resolve_device(device)
     check_on_device(model, dev)
 

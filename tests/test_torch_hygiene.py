@@ -93,6 +93,7 @@ def test_launcher_serves_each_arch_on_the_cpu(capsys):
 
 def test_unported_families_name_their_roadmap_item():
     assert "zamba2-1.2b" not in _NOT_PORTED
+    assert "xlstm-125m" not in _NOT_PORTED
     for arch in _NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(arch)

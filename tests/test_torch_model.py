@@ -85,6 +85,29 @@ def _hybrid_pairs(state, tree):
     return pairs, n_entries
 
 
+def _ssm_pairs(state, tree):
+    """Sample (port tensor, JAX leaf) pairs of the xLSTM tree:
+    blocks.mlstm stacked over (n_super, slstm_every - 1), blocks.slstm over
+    n_super."""
+    mlstm, slstm = tree["blocks"]["mlstm"], tree["blocks"]["slstm"]
+    n_super, n_m = mlstm["wq"].shape[:2]
+    pairs = []
+    for i in range(n_super):
+        for j in range(n_m):
+            pairs += [(state[f"blocks.mlstm.{i}.{j}.{k}"], mlstm[k][i, j])
+                      for k in ("wq", "conv", "w_if", "if_bias", "w_down")]
+            pairs += [(state[f"blocks.mlstm.{i}.{j}.norm.b"],
+                       mlstm["norm"]["b"][i, j]),
+                      (state[f"blocks.mlstm.{i}.{j}.onorm.w"],
+                       mlstm["onorm"]["w"][i, j])]
+        pairs += [(state[f"blocks.slstm.{i}.{k}"], slstm[k][i])
+                  for k in ("w_in", "gate_bias", "r_w", "w_out")]
+        pairs.append((state[f"blocks.slstm.{i}.norm.w"],
+                      slstm["norm"]["w"][i]))
+    # embed, final norm (w, b); 12 leaves per mLSTM block, 7 per sLSTM
+    return pairs, 3 + n_super * (n_m * 12 + 7)
+
+
 def _dense_pairs(state, tree):
     n_layers = tree["blocks"]["attn"]["wq"].shape[0]
     pairs = []
@@ -98,7 +121,7 @@ def _dense_pairs(state, tree):
     return pairs, 2 + n_layers * 9                # embed, final norm
 
 
-@pytest.mark.parametrize("arch", [ARCH, "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-1.2b", "xlstm-125m"])
 def test_params_from_jax_bit_exact(arch):
     jcfg = jax_reduced_config(jax_get_config(arch))
     params = jax_build_model(jcfg, remat=False).init(jax.random.key(3))
@@ -106,8 +129,9 @@ def test_params_from_jax_bit_exact(arch):
     for dtype in (jnp.bfloat16, jnp.float32):
         tree = jax.tree.map(np.asarray, _cast(params, dtype))
         state = params_from_jax(tree, cfg.family)
-        pairs, n_entries = (_hybrid_pairs if cfg.family == "hybrid"
-                            else _dense_pairs)(state, tree)
+        pairs, n_entries = {"dense": _dense_pairs,
+                            "hybrid": _hybrid_pairs,
+                            "ssm": _ssm_pairs}[cfg.family](state, tree)
         assert len(state) == n_entries
         pairs += [(state["embed"], tree["embed"]),
                   (state["final_norm.w"], tree["final_norm"]["w"])]
