@@ -9,12 +9,19 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
 1. build    -- compile every CUDA kernel of the serving paths and their
                binding from the sources in this checkout, with
                torch.utils.cpp_extension.load (one compiler per source, in
-               parallel).
+               parallel); beside it, ``nvcc -Xptxas -v`` of the sources of
+               the bf16 tensor-core kernels (K2, K3) reports their
+               registers, spills and static shared memory, and
+               ``cuobjdump -sass`` their HMMA instructions: none fails the
+               run.
 2. kernels  -- hold each kernel against its plain PyTorch version on the
                card, at each kernel's own tolerance (``TOL``), with its
                time, the plain version's time and the time of the library
                call for the same function where there is one (a yardstick
-               only; the port never calls it).
+               only; the port never calls it).  f32 cases run K2's and K3's
+               scalar kernels, bf16 cases their tensor-core kernels; the
+               serving shapes' rows add TFLOP/s, the share of the bound and
+               the time over the library call's.
 3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
    a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
    each at its published widths and full depth, random weights from a
@@ -101,6 +108,13 @@ def bound_ms(n_bytes: float, n_flops: float, dtype: str):
                                  else "operations")
 
 
+def rates(flops: float, ms: float, bms: float, library_ms) -> dict:
+    """The kernel's achieved TFLOP/s on the bound's FLOP count, the share
+    of its bound it reaches, and its time over the library call's."""
+    return dict(tflops=flops / ms / 1e9, share_of_bound=bms / ms,
+                vs_library=None if library_ms is None else ms / library_ms)
+
+
 def device_kernels(torch, fn) -> dict:
     """The device kernels one call of ``fn`` launches: name -> count."""
     from torch.autograd import DeviceType
@@ -126,11 +140,86 @@ def check_close(torch, kernel, name, out, ref, dtype) -> float:
 
 # --------------------------------------------------------------- phases
 
+# the tensor-core kernels (bf16 paths): source directory -> kernel name
+TC_KERNELS = {"flash_attention": "flash_fwd_tc_kernel",
+              "mamba_scan": "ssd_fwd_tc_kernel"}
+
+
+def tc_kernel_report(procs, cuda_home) -> dict:
+    """Registers, spills and static shared memory of each instantiation of
+    the tensor-core kernels (``nvcc -Xptxas -v``), and the HMMA (tensor-core
+    mma) instructions in its machine code (``cuobjdump -sass``, where the
+    toolkit has it).  Fails if a tensor-core kernel has no HMMA."""
+    import re
+    report = {}
+    for src, (proc, cubin) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v of {src} failed:\n{out}")
+        fn = None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1) if TC_KERNELS[src] in m.group(1) else None
+            elif fn and "spill" in line:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                    line)
+                report.setdefault(fn, {}).update(spill_stores=int(st),
+                                                 spill_loads=int(ld))
+            elif fn and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                smem = re.search(r"(\d+) bytes smem", line)
+                report.setdefault(fn, {}).update(
+                    registers=int(regs.group(1)),
+                    static_smem=int(smem.group(1)) if smem else 0)
+        cuobjdump = os.path.join(cuda_home, "bin", "cuobjdump")
+        if not os.path.exists(cuobjdump):
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if m.group(1) in report else None
+                if fn:
+                    report[fn]["hmma"] = 0
+            elif fn and "HMMA" in line:
+                report[fn]["hmma"] += 1
+    if not report:
+        raise AssertionError("no tensor-core kernel in the ptxas report")
+    for fn, r in report.items():
+        if r.get("hmma") == 0:
+            raise AssertionError(f"{fn} has no HMMA instruction: it does "
+                                 f"not run on the tensor cores")
+    return report
+
+
 def phase_build(torch):
-    from repro_torch.kernels._build import extension
+    """The extension (``_build.extension``), and beside it, started
+    together, one ``nvcc -cubin -Xptxas -v`` of each tensor-core kernel's
+    source for the report of ``tc_kernel_report``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels._build import (BUILD_DIR, COMMON, CUDA_FLAGS,
+                                            _PKG, extension)
+    report_dir = BUILD_DIR / "ptxas"
+    report_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    procs = {}
+    for src in TC_KERNELS:
+        cubin = str(report_dir / f"{src}.cubin")
+        procs[src] = (subprocess.Popen(
+            [os.path.join(CUDA_HOME, "bin", "nvcc"), "-cubin", "-std=c++17",
+             *CUDA_FLAGS, "-Xptxas", "-v", "-I", str(COMMON), "-o", cubin,
+             str(_PKG / src / "kernel.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), cubin)
     extension()
-    emit("build", seconds=time.perf_counter() - t0)
+    seconds = time.perf_counter() - t0
+    report = tc_kernel_report(procs, CUDA_HOME)
+    for fn, r in report.items():
+        print(f"  {fn}: {r}", flush=True)
+    emit("build", seconds=seconds,
+         report_seconds=time.perf_counter() - t0, tc_kernels=report)
 
 
 def phase_kernels(torch, dev):
@@ -181,10 +270,17 @@ def phase_kernels(torch, dev):
              for S in (128, 192, 1024) for H, Kv in ((32, 8), (4, 4), (2, 1))
              for D in (32, 64, 128) for causal in (True, False)
              for dname in dts]
-    # ragged tails: S not a multiple of the kernel's 64-row / 32-key tiles
+    # ragged tails: S not a multiple of the kernels' query and key tiles
     cases += [(2, S, 32, 8, D, causal, dname, 0.0)
               for S in (200, 1000) for D in (64, 128)
               for causal in (True, False) for dname in dts]
+    # the bf16 tensor-core kernel with a softcap, and at D 128 on ragged
+    # tails under GQA 4:1 and MHA
+    cases += [(1, 128, 2, 2, 32, True, "bfloat16", 20.0),
+              (2, 200, 32, 8, 64, True, "bfloat16", 20.0),
+              (2, 1000, 8, 2, 128, True, "bfloat16", 30.0)]
+    cases += [(2, 333, H, Kv, 128, causal, "bfloat16", 0.0)
+              for H, Kv in ((8, 2), (4, 4)) for causal in (True, False)]
     main_cases = {(4, 1024, 32, 8, 64, True, "bfloat16", 0.0):
                   "flash_attention",
                   (4, 1024, 32, 32, 64, True, "bfloat16", 0.0):
@@ -226,7 +322,8 @@ def phase_kernels(torch, dev):
             row = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib, shape=[B, S, H, Kv, D],
-                dtype=dname, causal=causal)
+                dtype=dname, causal=causal, flops=flops, n_bytes=n_bytes,
+                **rates(flops, ms, bms, lib))
             if main_cases[case] == "flash_attention":
                 row["library_kernels"] = device_kernels(
                     torch, lambda: F.scaled_dot_product_attention(
@@ -245,15 +342,18 @@ def ssd_cases(torch, dev, g, dts, table) -> int:
     """K3 against its plain version: the JAX sweep's shapes
     (tests/test_kernels.py::test_ssd_kernel_sweep), one sequence shorter
     than the chunk (a chunk of 100 tokens, as ``mamba_apply`` scans it),
-    and zamba2-1.2b's prefill (B 4, S 1024, 64 heads of 64, N 64, chunk
+    chunks of several 64-row tiles (192, and 48 with groups), and
+    zamba2-1.2b's prefill (B 4, S 1024, 64 heads of 64, N 64, chunk
     256), each in f32 and bf16.  No single PyTorch call computes an SSD
     scan, so there is no library time."""
     import torch.nn.functional as F
     from repro_torch.kernels.mamba_scan.ops import ssd
     from repro_torch.kernels.mamba_scan.ref import ssd_chunked
     main = (4, 1024, 64, 64, 1, 64, 256)
+    # and several t tiles to a chunk, with groups and a ragged last tile
     shapes = [(2, 128, 4, 32, 1, 16, 32), (2, 128, 4, 32, 2, 16, 64),
-              (2, 64, 2, 64, 2, 32, 16), (2, 100, 8, 64, 1, 64, 100), main]
+              (2, 64, 2, 64, 2, 32, 16), (2, 100, 8, 64, 1, 64, 100),
+              (2, 384, 4, 64, 2, 32, 192), (2, 96, 4, 32, 2, 16, 48), main]
     n = 0
     for Bt, T, H, P, G, N, Q in shapes:
         for dname, dt in dts.items():
@@ -290,7 +390,8 @@ def ssd_cases(torch, dev, g, dts, table) -> int:
                     max_abs_err=err, state_max_abs_err=err_st, ms=ms,
                     plain_ms=plain, bound_ms=bms, bound_by=by,
                     library_ms=None, shape=[Bt, T, H, P, G, N, Q],
-                    dtype=dname, n_bytes=n_bytes, flops=flops)
+                    dtype=dname, n_bytes=n_bytes, flops=flops,
+                    **rates(flops, ms, bms, None))
             n += 1
     return n
 
@@ -457,8 +558,8 @@ def phase_prefill(torch, dev, model, cfg, launches):
     step = make_prefill_step(model, device=dev)
 
     def timed(n):
-        """Last logits, median wall seconds, peak device GiB (the model's
-        weights included)."""
+        """Last logits, each call's wall seconds, peak device GiB (the
+        model's weights included)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         times = []
@@ -468,12 +569,17 @@ def phase_prefill(torch, dev, model, cfg, launches):
             out = step(tokens)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        return out, sorted(times)[len(times) // 2], \
-            torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        return out, times, torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
+    # one untimed call of each path first: the first calls after the
+    # kernels phase pay one-time costs (allocator growth, lazy loading)
+    model.use_kernels = False
+    step(tokens)
     model.use_kernels = True
+    step(tokens)
     launches.reset()
-    logits, t_kernel, gib_kernel = timed(4)
+    logits, runs_kernel, gib_kernel = timed(4)
+    t_kernel = sorted(runs_kernel)[2]
     launches.read(f"{cfg.arch_id} prefill")
     per_prefill = expected_launches(cfg)
     got = {k: n / 4 for k, n in launches.phases[
@@ -483,7 +589,8 @@ def phase_prefill(torch, dev, model, cfg, launches):
                              f"its layers give {per_prefill}")
     model.use_kernels = False
     before = launches.snapshot()
-    plain, t_plain, gib_plain = timed(2)
+    plain, runs_plain, gib_plain = timed(2)
+    t_plain = sorted(runs_plain)[1]
     model.use_kernels = True
     if launches.snapshot() != before:
         raise AssertionError("the plain path launched a kernel")
@@ -508,6 +615,7 @@ def phase_prefill(torch, dev, model, cfg, launches):
     del plain, logits
     emit(f"{cfg.arch_id} prefill", batch=B, seq=S, seconds=t_kernel,
          tokens_per_s=B * S / t_kernel, plain_seconds=t_plain,
+         runs_seconds=runs_kernel, plain_runs_seconds=runs_plain,
          peak_memory_gib=gib_kernel, plain_peak_memory_gib=gib_plain,
          **stats, launches_per_prefill=per_prefill,
          launches=launches.phases[f"{cfg.arch_id} prefill"])
@@ -762,13 +870,16 @@ def run(torch) -> int:
         print(f"kernel {k.name}: launches {total} on the main path, by "
               f"phase {by_phase}; held in {', '.join(held)}", flush=True)
         t = table[k.name]
-        rows.append({"name": k.name, "route": "cuda",
-                     "source": sources[k.name][0],
-                     "replaces": sources[k.name][1], "launches": total,
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+        row = {"name": k.name, "route": "cuda",
+               "source": sources[k.name][0],
+               "replaces": sources[k.name][1], "launches": total,
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if k.name in ("flash_attention", "ssd"):   # the tensor-core kernels
+            row.update({f: t[f] for f in ("tflops", "share_of_bound",
+                                          "vs_library")})
+        rows.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

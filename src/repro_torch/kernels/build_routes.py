@@ -69,7 +69,8 @@ def build_ctypes():
     t0 = time.perf_counter()
     procs = {k: subprocess.Popen(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(d / f"{k}.so"),
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(_build.COMMON),
+         "-o", str(d / f"{k}.so"),
          str(_build._PKG / k / "kernel.cu")]) for k in _build.KERNELS}
     for k, p in procs.items():
         if p.wait() != 0:

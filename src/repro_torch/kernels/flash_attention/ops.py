@@ -1,7 +1,8 @@
 """Flash attention op: the CUDA kernel for CUDA tensors, the plain version
 for CPU tensors.  Same (B, S, H, D) interface as the JAX package's
 ``kernels/flash_attention/ops.py``; the kernel handles ragged sequence
-tails itself, so no block size is picked."""
+tails itself, so no block size is picked.  On the card f32 runs the scalar
+kernel and bf16 the tensor-core one (see ``kernel.cu``)."""
 from __future__ import annotations
 
 import torch
@@ -41,6 +42,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must lie on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel needs q, k, v at 16-byte "
+                         "aligned addresses (it copies rows 16 bytes at a "
+                         "time)")
     out = extension().flash_attention(q, k, v, causal, float(softcap))
     FLASH_ATTENTION.launches += 1
     return out

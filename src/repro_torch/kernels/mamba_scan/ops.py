@@ -1,6 +1,8 @@
 """SSD chunked-scan op: the CUDA kernel for CUDA tensors, the plain version
 for CPU tensors.  Same interface as the JAX package's
-``kernels/mamba_scan/ops.py::ssd``: the scan starts from a zero state."""
+``kernels/mamba_scan/ops.py::ssd``: the scan starts from a zero state.
+On the card f32 runs the scalar kernel and bf16 the tensor-core one (see
+``kernel.cu``)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -57,6 +59,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("x, dt, A, B and C must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd kernel needs contiguous x, dt, A, B, C")
+    if any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd kernel needs x, B, C at 16-byte aligned "
+                         "addresses (it copies rows 16 bytes at a time)")
     y, state = extension().ssd(x, dt, A, B, C, chunk)
     SSD.launches += 1
     return y, state

@@ -147,3 +147,26 @@ def test_flash_attention_kernel_matches_plain(cuda, S, H, Kv, D, causal,
     torch.testing.assert_close(out.float(),
                                attention_ref(q, k, v, causal=causal).float(),
                                **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [192, 333])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("H,Kv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+def test_flash_attention_tensor_core_kernel_matches_plain(cuda, S, D, H, Kv,
+                                                          causal, softcap):
+    """bf16 runs the tensor-core kernel: its rounding of P to bf16 stays
+    inside bf16's 2e-2 (tests/test_torch_tc_numerics.py emulates it), on
+    ragged tails, GQA and MHA, with and without a softcap."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(2, S, H, D, generator=g, device=cuda).bfloat16()
+    k = torch.randn(2, S, Kv, D, generator=g, device=cuda).bfloat16()
+    v = torch.randn(2, S, Kv, D, generator=g, device=cuda).bfloat16()
+    before = FLASH_ATTENTION.launches
+    out = flash_attention(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, softcap=softcap)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol("bfloat16"))

@@ -186,3 +186,21 @@ def test_ssd_kernel_matches_plain(cuda, T, H, P, G, N, chunk, dtype):
     ref_y, ref_state = ssd_chunked(*tin, chunk=chunk)
     torch.testing.assert_close(y.float(), ref_y.float(), **_y_tol(dtype))
     torch.testing.assert_close(state, ref_state, **STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,P,G,N,chunk", [
+    (512, 2, 64, 1, 64, 256),       # two full chunks at the serving widths
+    (384, 4, 64, 2, 32, 192),       # three t tiles to a chunk, groups
+    (96, 4, 32, 2, 16, 48),         # a chunk shorter than a tile
+])
+def test_ssd_tensor_core_kernel_matches_plain(cuda, T, H, P, G, N, chunk):
+    """bf16 runs the tensor-core kernel, whose f32 operands go in as bf16
+    pairs (tests/test_torch_tc_numerics.py emulates it)."""
+    _, tin = _inputs(12, 2, T, H, P, G, N, "bfloat16")
+    tin = tuple(t.to(cuda) for t in tin)
+    y, state = ssd(*tin, chunk=chunk)
+    ref_y, ref_state = ssd_chunked(*tin, chunk=chunk)
+    torch.testing.assert_close(y.float(), ref_y.float(),
+                               **_y_tol("bfloat16"))
+    torch.testing.assert_close(state, ref_state, **STATE_TOL)
