@@ -10,7 +10,7 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                binding from the sources in this checkout, with
                torch.utils.cpp_extension.load (one compiler per source, in
                parallel); beside it, ``nvcc -Xptxas -v`` of the sources of
-               the bf16 tensor-core kernels (K2, K3) reports their
+               the bf16 tensor-core kernels (K2, K3, K4) reports their
                registers, spills and static shared memory, and
                ``cuobjdump -sass`` their HMMA instructions: none fails the
                run.
@@ -18,10 +18,12 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                card, at each kernel's own tolerance (``TOL``), with its
                time, the plain version's time and the time of the library
                call for the same function where there is one (a yardstick
-               only; the port never calls it).  f32 cases run K2's and K3's
-               scalar kernels, bf16 cases their tensor-core kernels; the
-               serving shapes' rows add TFLOP/s, the share of the bound and
-               the time over the library call's.
+               only; the port never calls it).  f32 cases run K2's, K3's
+               and K4's scalar kernels, bf16 cases their tensor-core
+               kernels; the serving shapes' rows add TFLOP/s, the share of
+               the bound and the time over the library call's, K1's rows
+               its device time from the profiler, and K4's row the device
+               kernels one call issues.
 3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
    a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
    each at its published widths and full depth, random weights from a
@@ -115,17 +117,36 @@ def rates(flops: float, ms: float, bms: float, library_ms) -> dict:
                 vs_library=None if library_ms is None else ms / library_ms)
 
 
-def device_kernels(torch, fn) -> dict:
-    """The device kernels one call of ``fn`` launches: name -> count."""
+def device_events(torch, fn, n: int):
+    """torch.profiler's device-side events of ``n`` calls of ``fn``.  The
+    window opens with one fill kernel, left out of the result: the profiler
+    may drop the first kernel of a fresh window (a window of one K4 call
+    read its three kernels as two)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    pad = torch.empty(1, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        pad.fill_(0.0)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    return {ev.key[:96]: ev.count for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA}
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and "FillFunctor" not in ev.key]
+
+
+def device_kernels(torch, fn, n: int = 4) -> dict:
+    """The device kernels one call of ``fn`` launches: name -> count."""
+    return {ev.key[:96]: ev.count / n for ev in device_events(torch, fn, n)}
+
+
+def profiled_ms(torch, fn, n: int = 20):
+    """Device time of one call of ``fn``: the profiler's kernel times of
+    ``n`` calls, summed, over ``n`` (None if it saw no kernel)."""
+    us = sum(ev.self_device_time_total for ev in device_events(torch, fn, n))
+    return us / 1e3 / n if us else None
 
 
 def check_close(torch, kernel, name, out, ref, dtype) -> float:
@@ -140,9 +161,10 @@ def check_close(torch, kernel, name, out, ref, dtype) -> float:
 
 # --------------------------------------------------------------- phases
 
-# the tensor-core kernels (bf16 paths): source directory -> kernel name
-TC_KERNELS = {"flash_attention": "flash_fwd_tc_kernel",
-              "mamba_scan": "ssd_fwd_tc_kernel"}
+# the tensor-core kernels (bf16 paths): source directory -> kernel names
+TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",),
+              "mamba_scan": ("ssd_fwd_tc_kernel",),
+              "mlstm": ("mlstm_state_tc_kernel", "mlstm_out_tc_kernel")}
 
 
 def tc_kernel_report(procs, cuda_home) -> dict:
@@ -160,7 +182,8 @@ def tc_kernel_report(procs, cuda_home) -> dict:
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if TC_KERNELS[src] in m.group(1) else None
+                fn = m.group(1) if any(
+                    name in m.group(1) for name in TC_KERNELS[src]) else None
             elif fn and "spill" in line:
                 st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                     line)
@@ -253,10 +276,17 @@ def phase_kernels(torch, dev):
                 plain = cuda_ms(torch, lambda: rmsnorm_ref(x, w))
                 n_bytes = 2 * x.numel() * x.element_size() + 4 * D
                 bms, by = bound_ms(n_bytes, 4 * x.numel(), "float32")
+                # "ms" above includes the host's cost per call; the device
+                # time is the profiler's kernel time
+                dev_ms = profiled_ms(torch, lambda: rmsnorm(x, w))
+                print(f"  rmsnorm R={R} D={D} {dname} device_ms="
+                      f"{dev_ms} bound_ms={bms:.5f}", flush=True)
                 row = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib, shape=[R, D],
-                    dtype=dname)
+                    dtype=dname, device_ms=dev_ms,
+                    device_share_of_bound=None if dev_ms is None
+                    else bms / dev_ms)
                 if D == 2048:      # the table's row: llama's prefill shape
                     row["library_kernels"] = device_kernels(
                         torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
@@ -397,23 +427,24 @@ def ssd_cases(torch, dev, g, dts, table) -> int:
 
 
 def mlstm_cases(torch, dev, g, dts, table) -> int:
-    """K4 against its plain version: the JAX sweep's shapes in f32
-    (tests/test_kernels.py::test_mlstm_kernel_sweep), xlstm-125m's prefill
-    (B 4, S 1024, 4 heads of 384, chunk 256) in f32 and bf16, both with the
-    sweep's inputs (q, k, v normal, i 2 normal, f 2 normal + 3), and
-    constant gates at |log gate| = 5 in each sign combination at the
-    serving width over two chunks, where h must be finite
-    (test_mlstm_gate_stability_property).  No PyTorch call computes an
-    mLSTM, so there is no library time."""
+    """K4 against its plain version, each case in f32 (the scalar kernel)
+    and bf16 (the tensor-core kernels): the JAX sweep's shapes
+    (tests/test_kernels.py::test_mlstm_kernel_sweep), chunks of 100 and 192
+    tokens (ragged 64-row tiles), xlstm-125m's prefill (B 4, S 1024, 4
+    heads of 384, chunk 256), all with the sweep's inputs (q, k, v normal,
+    i 2 normal, f 2 normal + 3), and constant gates at |log gate| = 5 in
+    each sign combination at the serving width over two chunks, where h
+    must be finite (test_mlstm_gate_stability_property).  No PyTorch call
+    computes an mLSTM, so there is no library time."""
     from repro_torch.kernels.mlstm.ops import mlstm
     from repro_torch.kernels.mlstm.ref import mlstm_chunked
     main = (4, 1024, 4, 384, 256)
-    cases = [((2, 128, 2, 32, 32), "float32", None),
-             ((2, 64, 4, 16, 16), "float32", None),
-             ((2, 96, 2, 64, 32), "float32", None),
-             (main, "float32", None), (main, "bfloat16", None)]
-    cases += [((1, 512, 4, 384, 256), "float32", (log_f, log_i))
-              for log_f in (5.0, -5.0) for log_i in (5.0, -5.0)]
+    shapes = [(2, 128, 2, 32, 32), (2, 64, 4, 16, 16), (2, 96, 2, 64, 32),
+              (2, 200, 2, 64, 100), (2, 384, 2, 384, 192), main]
+    cases = [(shape, dname, None) for shape in shapes for dname in dts]
+    cases += [((1, 512, 4, 384, 256), dname, (log_f, log_i))
+              for log_f in (5.0, -5.0) for log_i in (5.0, -5.0)
+              for dname in dts]
     for (Bt, T, H, D, Q), dname, const in cases:
         dt = dts[dname]
         q, k, v = (torch.randn(Bt, T, H, D, generator=g, device=dev).to(dt)
@@ -453,11 +484,16 @@ def mlstm_cases(torch, dev, g, dts, table) -> int:
               f"m_err={err_m:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
               f"bound_ms={bms:.4f} ({by}) library_ms=none", flush=True)
         if (Bt, T, H, D, Q) == main and dname == "bfloat16":
+            run = lambda: mlstm(q, k, v, i_raw, f_raw, chunk=Q)  # noqa: E731
+            kernels = device_kernels(torch, run)
+            print(f"  {name}: device kernels per call {kernels}", flush=True)
             table["mlstm"] = dict(
                 max_abs_err=err, C_max_abs_err=err_C, n_max_abs_err=err_n,
                 m_max_abs_err=err_m, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None, shape=[Bt, T, H, D, Q],
-                dtype=dname, n_bytes=n_bytes, flops=flops)
+                dtype=dname, n_bytes=n_bytes, flops=flops,
+                device_kernels=kernels, device_ms=profiled_ms(torch, run),
+                **rates(flops, ms, bms, None))
     return len(cases)
 
 
@@ -876,9 +912,11 @@ def run(torch) -> int:
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if k.name in ("flash_attention", "ssd"):   # the tensor-core kernels
+        if k.name in ("flash_attention", "ssd", "mlstm"):   # tensor cores
             row.update({f: t[f] for f in ("tflops", "share_of_bound",
                                           "vs_library")})
+        if k.name == "rmsnorm":
+            row["device_ms"] = t["device_ms"]
         rows.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

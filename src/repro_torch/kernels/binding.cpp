@@ -22,11 +22,13 @@ extern "C" int ssd_forward(const void* x, const float* dt, const float* A,
                            const void* B, const void* C, void* y,
                            float* state, int Bt, int S, int H, int G, int P,
                            int N, int Q, int dtype, void* stream);
+extern "C" long long mlstm_scratch_bytes(int B, int S, int H, int D, int Q,
+                                         int dtype);
 extern "C" int mlstm_forward(const void* q, const void* k, const void* v,
                              const float* i_raw, const float* f_raw,
                              void* h, float* C, float* n, float* m, int B,
                              int S, int H, int D, int Q, float scale,
-                             int dtype, void* stream);
+                             void* scratch, int dtype, void* stream);
 
 namespace {
 
@@ -102,14 +104,21 @@ mlstm(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
   auto C = torch::empty({B, H, D, D}, f32);
   auto n = torch::empty({B, H, D}, f32);
   auto m = torch::empty({B, H}, f32);
+  // the bf16 path's gate chain and the states entering each chunk
+  const int dtype = dtype_code(q);
+  auto scratch = torch::empty(
+      {mlstm_scratch_bytes(static_cast<int>(B), static_cast<int>(S),
+                           static_cast<int>(H), static_cast<int>(D),
+                           static_cast<int>(chunk), dtype)},
+      q.options().dtype(torch::kUInt8));
   const int err = mlstm_forward(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), i_raw.data_ptr<float>(),
       f_raw.data_ptr<float>(), h.data_ptr(), C.data_ptr<float>(),
       n.data_ptr<float>(), m.data_ptr<float>(), static_cast<int>(B),
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(D),
       static_cast<int>(chunk),
-      static_cast<float>(1.0 / std::sqrt(double(D))), dtype_code(q),
-      stream_of(q));
+      static_cast<float>(1.0 / std::sqrt(double(D))), scratch.data_ptr(),
+      dtype, stream_of(q));
   TORCH_CHECK(err == 0, "mlstm kernel launch failed: cudaError ", err);
   return {h, C, n, m};
 }

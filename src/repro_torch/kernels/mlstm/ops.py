@@ -1,7 +1,9 @@
 """Chunked mLSTM op: the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors.  Same interface as the JAX package's
 ``kernels/mlstm/ops.py::mlstm``: the scan starts from C = n = 0 and
-m = -1e30."""
+m = -1e30.  On the card f32 runs the scalar kernel and bf16 the tensor-core
+ones (see ``kernel.cu``); one call counts as one launch of K4, whatever
+number of device kernels it issues."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -54,6 +56,11 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v and the gates must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mlstm kernel needs contiguous q, k, v and gates")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("mlstm kernel needs bf16 q, k, v at 16-byte "
+                         "aligned addresses (it copies rows 16 bytes at a "
+                         "time)")
     h, C, n, m = extension().mlstm(q, k, v, i_raw, f_raw, chunk)
     MLSTM.launches += 1
     return h, (C, n, m)

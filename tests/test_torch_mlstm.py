@@ -35,15 +35,19 @@ def _h_tol(dtype):
         else dict(rtol=5e-3, atol=5e-3)
 
 
-def _inputs(seed, B, T, H, D, dtype):
+def _inputs(seed, B, T, H, D, dtype, gates=None):
     """q, k, v in ``dtype`` (normal); i_raw = 2 normal, f_raw = 2 normal + 3
-    in f32, as the JAX sweep draws them; each as a (jax, torch) pair."""
+    in f32, as the JAX sweep draws them, or given ``gates`` = (log f,
+    log i) constant gates; each as a (jax, torch) pair."""
     rng = np.random.default_rng(seed)
     jdt, tdt = DTYPES[dtype]
     qkv = [rng.standard_normal((B, T, H, D)).astype(np.float32)
            for _ in range(3)]
     i_raw = (rng.standard_normal((B, T, H)) * 2).astype(np.float32)
     f_raw = (rng.standard_normal((B, T, H)) * 2 + 3).astype(np.float32)
+    if gates is not None:
+        f_raw = np.full((B, T, H), gates[0], np.float32)
+        i_raw = np.full((B, T, H), gates[1], np.float32)
     jax_side = tuple(jnp.asarray(a).astype(jdt) for a in qkv) + (
         jnp.asarray(i_raw), jnp.asarray(f_raw))
     torch_side = tuple(torch.from_numpy(a).to(tdt) for a in qkv) + (
@@ -183,19 +187,26 @@ def cuda():
     return torch.device("cuda")
 
 
+# the sweep and xlstm-125m's prefill (per sequence) in both dtypes, and
+# the tensor-core kernels at the serving width under constant gates at
+# |log gate| = 5 (the gate-stability property's extreme)
+KERNEL_CASES = [(T, H, D, chunk, None, dtype)
+                for T, H, D, chunk in SWEEP + [(1024, 4, 384, 256)]
+                for dtype in DTYPES] + [(512, 4, 384, 256, (5.0, 5.0),
+                                         "bfloat16")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,H,D,chunk", SWEEP + [
-    (1024, 4, 384, 256),            # xlstm-125m's prefill, per sequence
-])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_mlstm_kernel_matches_plain(cuda, T, H, D, chunk, dtype):
-    _, tin = _inputs(13, 2, T, H, D, dtype)
+@pytest.mark.parametrize("T,H,D,chunk,gates,dtype", KERNEL_CASES)
+def test_mlstm_kernel_matches_plain(cuda, T, H, D, chunk, gates, dtype):
+    _, tin = _inputs(13, 2, T, H, D, dtype, gates)
     tin = tuple(t.to(cuda) for t in tin)
     before = MLSTM.launches
     h, carry = mlstm(*tin, chunk=chunk)
     torch.cuda.synchronize()
     assert MLSTM.launches == before + 1
     ref_h, ref_carry = mlstm_chunked(*tin, chunk=chunk)
+    assert torch.isfinite(h).all()
     torch.testing.assert_close(h.float(), ref_h.float(), **_h_tol(dtype))
     for ours, theirs, tol in zip(carry, ref_carry,
                                  (STATE_TOL, STATE_TOL, M_TOL)):

@@ -1,7 +1,8 @@
-"""The rounding of the bf16 tensor-core paths of K2 (flash attention) and K3
-(SSD scan), emulated in plain PyTorch on the CPU and held against the JAX
-package's Pallas kernels (interpret mode, as tests/test_kernels.py runs
-them) and against the port's plain versions, on numpy inputs from a seed.
+"""The rounding of the bf16 tensor-core paths of K2 (flash attention), K3
+(SSD scan) and K4 (chunked mLSTM), emulated in plain PyTorch on the CPU and
+held against the JAX package's Pallas kernels (interpret mode, as
+tests/test_kernels.py runs them) and against the port's plain versions, on
+numpy inputs from a seed.
 
 The CUDA kernels cannot run here; these emulations do what their bf16
 paths do, product by product, so that the tolerances the card holds them
@@ -16,11 +17,19 @@ tensor cores add:
   W' = (C·Bᵀ)·exp(b_t - b_s)·dt_s, the state, and the scaled
   B' = exp(b_Q - b_s)·dt_s·B_s -- is split into a bf16 pair hi + lo,
   hi = bf16(v), lo = bf16(v - hi), one product each.
+- K4: the scores q·kᵀ from bf16 q and k are exact products summed in f32,
+  scaled by 1/√D after the sum; the gate chain, the row sums (den) and
+  q·n are f32.  Each f32 operand of a product is a bf16 pair: the state
+  C entering a chunk (stored as a pair by the state stage, read by the
+  inter-chunk term q·C), the weighted scores P of P·V, and the scaled keys
+  k ∘ exp(a - R) of the state update (k ∘ exp(a - R))ᵀ·v.
 
 Tolerances: K2 bf16 2e-2 (tests/test_kernels.py::_tol); K3 y 4e-2 and the
-final state 1e-3 (test_ssd_kernel_sweep).  The last test shows why K3
-splits its f32 operands into pairs: rounded once to bf16, W' puts y, and
-the state path puts the final state, outside those bounds.
+final state 1e-3 (test_ssd_kernel_sweep); K4 h bf16 2e-2, C and n 1e-3,
+m 1e-4 (test_mlstm_kernel_sweep, with _tol's bf16 bound for h).  The
+``single_rounding_misses`` tests show why K3 and K4 split their f32
+operands into pairs: rounded once to bf16, each of them puts an output
+outside its bound.
 """
 import functools
 import math
@@ -32,12 +41,16 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.mamba_scan.ops import ssd as jax_ssd
+from repro.kernels.mlstm.ops import mlstm as jax_mlstm
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mamba_scan.ref import ssd_chunked
+from repro_torch.kernels.mlstm.ref import mlstm_chunked
 
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
 Y_TOL = dict(rtol=4e-2, atol=4e-2)
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+H_TOL = dict(rtol=2e-2, atol=2e-2)
+M_TOL = dict(rtol=1e-4, atol=1e-4)
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
@@ -128,6 +141,58 @@ def ssd_tc(x, dt, A, B, C, *, chunk, single=()):
             + xt @ bhi + xt @ blo
     y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype)
     return y, state
+
+
+def mlstm_tc(q, k, v, i_raw, f_raw, *, chunk, single=()):
+    """K4's bf16 path.  q, k, v: (B, S, H, D) bf16; i_raw, f_raw: (B, S, H)
+    f32.  ``single`` names the operands rounded once to bf16 instead of
+    split into a pair: "state" (C in the inter-chunk term), "p" (the
+    weighted scores in P·V), "keys" (the scaled keys of the state
+    update)."""
+    B, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+
+    def operand(t, name):
+        return (_bf16(t), torch.zeros_like(t)) if name in single \
+            else _split(t)
+
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    lf = torch.nn.functional.logsigmoid(f_raw.float()).permute(0, 2, 1)
+    ig = i_raw.float().permute(0, 2, 1)                      # (B, H, S)
+    C = torch.zeros(B, H, D, D)
+    n = torch.zeros(B, H, D)
+    m0 = torch.full((B, H), NEG_INF)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    hs = []
+    for c0 in range(0, S, chunk):
+        qs, ks, vs = (t[:, :, c0:c0 + chunk] for t in (qf, kf, vf))
+        b = torch.cumsum(lf[..., c0:c0 + chunk], dim=-1)
+        a = ig[..., c0:c0 + chunk] - b
+        rm = torch.maximum(torch.cummax(a, dim=-1).values, m0[..., None])
+        # inter-chunk term from the state as a pair, scaled after the sum
+        isc = torch.exp(m0[..., None] - rm) * scale
+        chi, clo = operand(C, "state")
+        num = (qs @ chi + qs @ clo) * isc[..., None]
+        den = (qs @ n[..., None])[..., 0] * isc
+        # weights exp(a_s - rm_t) where s <= t, a select
+        w = torch.exp(torch.where(tri, a[..., None, :] - rm[..., :, None],
+                                  0.0))
+        p = torch.where(tri, (qs @ ks.transpose(-1, -2)) * scale * w, 0.0)
+        den = den + p.sum(-1)
+        phi, plo = operand(p, "p")
+        num = num + phi @ vs + plo @ vs
+        hs.append(num / torch.maximum(den.abs(),
+                                      torch.exp(-(b + rm)))[..., None])
+        R = rm[..., -1]
+        kd = ks * torch.exp(a - R[..., None])[..., None]
+        khi, klo = operand(kd, "keys")
+        decay = torch.exp(m0 - R)
+        C = C * decay[..., None, None] + khi.transpose(-1, -2) @ vs \
+            + klo.transpose(-1, -2) @ vs
+        n = n * decay[..., None] + kd.sum(-2)
+        m0 = b[..., -1] + R
+    h = torch.cat(hs, dim=2).permute(0, 2, 1, 3).to(q.dtype)
+    return h, (C, n, m0)
 
 
 def _worst(out, ref, rtol, atol):
@@ -237,4 +302,76 @@ def test_ssd_single_rounding_misses(operand, out):
         tin, ref = _ssd_case(SERVING, seed)
         got = ssd_tc(*tin, chunk=SERVING[-1], single=(operand,))[out]
         worst = max(worst, _worst(got, ref[out], **tol))
+    assert worst > 1.0
+
+
+# ------------------------------------------------------------------- K4
+
+def _mlstm_inputs(seed, B, T, H, D, gates):
+    """q, k, v normal in bf16; the JAX sweep's gates (i 2 normal, f 2
+    normal + 3) or, given (log f, log i), constant gates; as (jax, torch)
+    tuples."""
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((B, T, H, D)).astype(np.float32)
+           for _ in range(3)]
+    if gates is None:
+        i_raw = (rng.standard_normal((B, T, H)) * 2).astype(np.float32)
+        f_raw = (rng.standard_normal((B, T, H)) * 2 + 3).astype(np.float32)
+    else:
+        f_raw = np.full((B, T, H), gates[0], np.float32)
+        i_raw = np.full((B, T, H), gates[1], np.float32)
+    jax_side = tuple(jnp.asarray(a).astype(jnp.bfloat16) for a in qkv) + (
+        jnp.asarray(i_raw), jnp.asarray(f_raw))
+    torch_side = tuple(torch.from_numpy(a).to(torch.bfloat16)
+                       for a in qkv) + (torch.from_numpy(i_raw),
+                                        torch.from_numpy(f_raw))
+    return jax_side, torch_side
+
+
+# two 256-token chunks (xlstm-125m's chunk) at head widths 64 and 384 (its
+# mLSTM heads), from several seeds of the sweep's gates and at the
+# gate-stability property's extremes, |log gate| = 5 in each sign
+MLSTM_SEEDS = range(40, 45)
+STABILITY = [(f, i) for f in (5.0, -5.0) for i in (5.0, -5.0)]
+MLSTM_CASES = [(D, seed, None) for D in (64, 384) for seed in MLSTM_SEEDS] \
+    + [(D, 40, gates) for D in (64, 384) for gates in STABILITY]
+
+
+@functools.lru_cache(maxsize=None)
+def _mlstm_case(D, seed, gates):
+    """Inputs (torch) and the Pallas kernel's (h, C, n, m) as numpy."""
+    jin, tin = _mlstm_inputs(seed, 1, 512, 2, D, gates)
+    h, (C, n, m) = jax_mlstm(*jin, chunk=256)
+    return tin, tuple(np.asarray(x, np.float32) for x in (h, C, n, m))
+
+
+@pytest.mark.parametrize("D,seed,gates", MLSTM_CASES)
+def test_mlstm_bf16_rounding_within_tolerance(D, seed, gates):
+    tin, ref = _mlstm_case(D, seed, gates)
+    h, carry = mlstm_tc(*tin, chunk=256)
+    assert h.dtype == torch.bfloat16 and torch.isfinite(h).all()
+    assert all(c.dtype == torch.float32 for c in carry)
+    plain_h, plain_carry = mlstm_chunked(*tin, chunk=256)
+    for want_h, want_carry in ((ref[0], ref[1:]), (plain_h, plain_carry)):
+        _close(h, want_h, **H_TOL)
+        for got, want, tol in zip(carry, want_carry,
+                                  (STATE_TOL, STATE_TOL, M_TOL)):
+            _close(got, want, **tol)
+
+
+@pytest.mark.parametrize("operand,out", [("state", 0), ("p", 0),
+                                         ("keys", 1)])
+def test_mlstm_single_rounding_misses(operand, out):
+    """Rounding an operand once to bf16 puts an output outside its bound
+    at xlstm-125m's head width for some of the cases the pairs pass with
+    (the test above): the state C in q·C and the weighted scores P in P·V
+    put h outside 2e-2; the scaled keys put the final C outside 1e-3."""
+    tol = (H_TOL, STATE_TOL)[out]
+    worst = 0.0
+    for D, seed, gates in MLSTM_CASES:
+        if D != 384:
+            continue
+        tin, ref = _mlstm_case(D, seed, gates)
+        h, (C, _, _) = mlstm_tc(*tin, chunk=256, single=(operand,))
+        worst = max(worst, _worst((h, C)[out], ref[out], **tol))
     assert worst > 1.0
