@@ -10,10 +10,10 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                binding from the sources in this checkout, with
                torch.utils.cpp_extension.load (one compiler per source, in
                parallel); beside it, ``nvcc -Xptxas -v`` of the sources of
-               the bf16 tensor-core kernels (K2, K3, K4) reports their
-               registers, spills and static shared memory, and
-               ``cuobjdump -sass`` their HMMA instructions: none fails the
-               run.
+               the bf16 tensor-core kernels (K2, K3, K4) and of K1 reports
+               their registers, spills and static shared memory, and
+               ``cuobjdump -sass`` their HMMA instructions: none in a
+               tensor-core kernel fails the run.
 2. kernels  -- hold each kernel against its plain PyTorch version on the
                card, at each kernel's own tolerance (``TOL``), with its
                time, the plain version's time and the time of the library
@@ -21,9 +21,13 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                only; the port never calls it).  f32 cases run K2's, K3's
                and K4's scalar kernels, bf16 cases their tensor-core
                kernels; the serving shapes' rows add TFLOP/s, the share of
-               the bound and the time over the library call's, K1's rows
-               its device time from the profiler, and K4's row the device
-               kernels one call issues.
+               the bound and the time over the library call's, and K4's
+               row the device kernels one call issues.  K1 is timed at
+               every serving shape, (4096, D) and (8, D) at D 2048, 4096,
+               1536 and 768, in f32 and bf16, by the profiler's device time
+               with L2 cold (its share of the bytes bound) and warm; every
+               K1 case must launch the route its D, dtype and alignment
+               give (``rmsnorm_route_for``), by the profiler's kernel names.
 3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
    a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
    each at its published widths and full depth, random weights from a
@@ -35,7 +39,8 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                8-64 prompt tokens and 32 new tokens each; plus decode
                against prefill logits on one sequence of 64 tokens.
    profile  -- device time by kernel of one prefill and one decode step
-               (and, for xlstm-125m, of one sLSTM block's prefill).
+               (and, for xlstm-125m, of one sLSTM block's prefill), K1's
+               among them; every K1 kernel there must be its vector route.
 
 Logits are held to the bound of tests/test_decode_consistency.py; where
 bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
@@ -142,10 +147,12 @@ def device_kernels(torch, fn, n: int = 4) -> dict:
     return {ev.key[:96]: ev.count / n for ev in device_events(torch, fn, n)}
 
 
-def profiled_ms(torch, fn, n: int = 20):
-    """Device time of one call of ``fn``: the profiler's kernel times of
-    ``n`` calls, summed, over ``n`` (None if it saw no kernel)."""
-    us = sum(ev.self_device_time_total for ev in device_events(torch, fn, n))
+def profiled_ms(torch, fn, n: int = 20, match: str = ""):
+    """Device time of one call of ``fn``: the profiler's times of the
+    kernels whose names hold ``match``, over ``n`` calls, summed, over
+    ``n`` (None if it saw no such kernel)."""
+    us = sum(ev.self_device_time_total for ev in device_events(torch, fn, n)
+             if match in ev.key)
     return us / 1e3 / n if us else None
 
 
@@ -165,13 +172,16 @@ def check_close(torch, kernel, name, out, ref, dtype) -> float:
 TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",),
               "mamba_scan": ("ssd_fwd_tc_kernel",),
               "mlstm": ("mlstm_state_tc_kernel", "mlstm_out_tc_kernel")}
+# the kernels of the ptxas report: the tensor-core kernels and K1's
+REPORTED = dict(TC_KERNELS, rmsnorm=("rmsnorm_",))
 
 
-def tc_kernel_report(procs, cuda_home) -> dict:
+def kernel_report(procs, cuda_home) -> dict:
     """Registers, spills and static shared memory of each instantiation of
-    the tensor-core kernels (``nvcc -Xptxas -v``), and the HMMA (tensor-core
-    mma) instructions in its machine code (``cuobjdump -sass``, where the
-    toolkit has it).  Fails if a tensor-core kernel has no HMMA."""
+    the kernels in ``REPORTED`` (``nvcc -Xptxas -v``), and the HMMA
+    (tensor-core mma) instructions in its machine code (``cuobjdump -sass``,
+    where the toolkit has it).  Fails if a tensor-core kernel has no HMMA;
+    K1 needs none."""
     import re
     report = {}
     for src, (proc, cubin) in procs.items():
@@ -183,16 +193,17 @@ def tc_kernel_report(procs, cuda_home) -> dict:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = m.group(1) if any(
-                    name in m.group(1) for name in TC_KERNELS[src]) else None
+                    name in m.group(1) for name in REPORTED[src]) else None
+                if fn:
+                    report[fn] = {"source": src}
             elif fn and "spill" in line:
                 st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                     line)
-                report.setdefault(fn, {}).update(spill_stores=int(st),
-                                                 spill_loads=int(ld))
+                report[fn].update(spill_stores=int(st), spill_loads=int(ld))
             elif fn and "Used" in line:
                 regs = re.search(r"Used (\d+) registers", line)
                 smem = re.search(r"(\d+) bytes smem", line)
-                report.setdefault(fn, {}).update(
+                report[fn].update(
                     registers=int(regs.group(1)),
                     static_smem=int(smem.group(1)) if smem else 0)
         cuobjdump = os.path.join(cuda_home, "bin", "cuobjdump")
@@ -209,10 +220,10 @@ def tc_kernel_report(procs, cuda_home) -> dict:
                     report[fn]["hmma"] = 0
             elif fn and "HMMA" in line:
                 report[fn]["hmma"] += 1
-    if not report:
-        raise AssertionError("no tensor-core kernel in the ptxas report")
+    if {r["source"] for r in report.values()} != set(REPORTED):
+        raise AssertionError(f"the ptxas report lacks a source: {report}")
     for fn, r in report.items():
-        if r.get("hmma") == 0:
+        if r["source"] in TC_KERNELS and r.get("hmma") == 0:
             raise AssertionError(f"{fn} has no HMMA instruction: it does "
                                  f"not run on the tensor cores")
     return report
@@ -220,8 +231,8 @@ def tc_kernel_report(procs, cuda_home) -> dict:
 
 def phase_build(torch):
     """The extension (``_build.extension``), and beside it, started
-    together, one ``nvcc -cubin -Xptxas -v`` of each tensor-core kernel's
-    source for the report of ``tc_kernel_report``."""
+    together, one ``nvcc -cubin -Xptxas -v`` of each source in
+    ``REPORTED`` for the report of ``kernel_report``."""
     from torch.utils.cpp_extension import CUDA_HOME
     from repro_torch.kernels._build import (BUILD_DIR, COMMON, CUDA_FLAGS,
                                             _PKG, extension)
@@ -229,7 +240,7 @@ def phase_build(torch):
     report_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for src in TC_KERNELS:
+    for src in REPORTED:
         cubin = str(report_dir / f"{src}.cubin")
         procs[src] = (subprocess.Popen(
             [os.path.join(CUDA_HOME, "bin", "nvcc"), "-cubin", "-std=c++17",
@@ -238,61 +249,26 @@ def phase_build(torch):
             stderr=subprocess.STDOUT, text=True), cubin)
     extension()
     seconds = time.perf_counter() - t0
-    report = tc_kernel_report(procs, CUDA_HOME)
+    report = kernel_report(procs, CUDA_HOME)
     for fn, r in report.items():
         print(f"  {fn}: {r}", flush=True)
     emit("build", seconds=seconds,
-         report_seconds=time.perf_counter() - t0, tc_kernels=report)
+         report_seconds=time.perf_counter() - t0,
+         tc_kernels={fn: r for fn, r in report.items()
+                     if r["source"] in TC_KERNELS},
+         rmsnorm_kernels={fn: r for fn, r in report.items()
+                          if r["source"] == "rmsnorm"})
 
 
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     g = torch.Generator(device=dev).manual_seed(SEED)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     table = {}
 
-    # K1: llama's serving path runs (B*S, 2048) in prefill and
-    # (max_batch, 2048) in decode; zamba2's adds the gated norm over
-    # d_inner, (B*S, 4096); xlstm-125m's the output norms of the mLSTM
-    # (d_inner 1536) and sLSTM (768) blocks.  bf16 x with f32 weights
-    rms_cases = [(100, 96), (256, 512), (8, 2048), (4 * 1024, 2048),
-                 (8, 4096), (4 * 1024, 4096), (8, 1536), (4 * 1024, 1536),
-                 (8, 768), (4 * 1024, 768)]
-    for R, D in rms_cases:
-        for dname, dt in dts.items():
-            x = torch.randn(R, D, generator=g, device=dev).to(dt)
-            w = torch.randn(D, generator=g, device=dev)
-            err = check_close(torch, "rmsnorm", f"rmsnorm ({R},{D}) {dname}",
-                              rmsnorm(x, w), rmsnorm_ref(x, w), dname)
-            ms = cuda_ms(torch, lambda: rmsnorm(x, w))
-            lib = cuda_ms(torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
-            print(f"  rmsnorm R={R} D={D} {dname} err={err:.3e} "
-                  f"ms={ms:.5f} library_ms={lib:.5f}", flush=True)
-            if R == 4 * 1024 and dname == "bfloat16":
-                plain = cuda_ms(torch, lambda: rmsnorm_ref(x, w))
-                n_bytes = 2 * x.numel() * x.element_size() + 4 * D
-                bms, by = bound_ms(n_bytes, 4 * x.numel(), "float32")
-                # "ms" above includes the host's cost per call; the device
-                # time is the profiler's kernel time
-                dev_ms = profiled_ms(torch, lambda: rmsnorm(x, w))
-                print(f"  rmsnorm R={R} D={D} {dname} device_ms="
-                      f"{dev_ms} bound_ms={bms:.5f}", flush=True)
-                row = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib, shape=[R, D],
-                    dtype=dname, device_ms=dev_ms,
-                    device_share_of_bound=None if dev_ms is None
-                    else bms / dev_ms)
-                if D == 2048:      # the table's row: llama's prefill shape
-                    row["library_kernels"] = device_kernels(
-                        torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
-                    table["rmsnorm"] = row
-                else:
-                    table[f"rmsnorm_d{D}"] = row
+    n_rmsnorm = rmsnorm_cases(torch, dev, g, dts, table)
 
     # K2: llama's prefill is B=4, S=1024, H:Kv=32:8, D=64, causal; zamba2's
     # shared attention the same at 32:32
@@ -362,10 +338,164 @@ def phase_kernels(torch, dev):
 
     n_ssd = ssd_cases(torch, dev, g, dts, table)
     n_mlstm = mlstm_cases(torch, dev, g, dts, table)
-    emit("kernels", cases_rmsnorm=2 * len(rms_cases),
+    emit("kernels", cases_rmsnorm=n_rmsnorm,
          cases_flash_attention=len(cases), cases_ssd=n_ssd,
          cases_mlstm=n_mlstm, main_shapes=table)
     return table
+
+
+# K1's widths on the serving paths: llama's norms and zamba2's pre-norms
+# (2048), zamba2's gated norm over d_inner (4096), xlstm-125m's output norms
+# of the mLSTM (d_inner 1536) and sLSTM (768) blocks; B*S = 4096 rows in a
+# prefill, max_batch = 8 in a decode step.  bf16 x with f32 weights on the
+# paths; f32 x beside it.
+RMS_WIDTHS = (2048, 4096, 1536, 768)
+RMS_ROWS = (4 * 1024, 8)
+L2_FLUSH_BYTES = 128 * 2 ** 20     # zeroed before a cold-L2 call: > 2x L2
+RMS_VEC_MAX_D = 4096               # widest row of K1's vector route
+RMS_KERNELS = {"vector": "rmsnorm_vec_kernel",
+               "scalar": "rmsnorm_scalar_kernel"}
+
+
+def rmsnorm_route(kernels: dict) -> str:
+    """The route of a K1 call, from the names of the device kernels it
+    launched: "vector" or "scalar", else the names themselves."""
+    names = " ".join(kernels)
+    for route, kernel in RMS_KERNELS.items():
+        if kernel in names:
+            return route
+    return names
+
+
+def rmsnorm_route_for(x, w) -> str:
+    """The route ``rmsnorm_forward`` must choose for x and w (out is new,
+    so aligned): vector where D is a whole number of 16-byte vectors of x,
+    at most RMS_VEC_MAX_D, and x and w are 16-byte aligned."""
+    D = x.shape[-1]
+    fits = D * x.element_size() % 16 == 0 and D <= RMS_VEC_MAX_D
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "vector" if fits and aligned else "scalar"
+
+
+def check_route(torch, name, fn, want) -> str:
+    """The route one call of ``fn`` launched; fails unless it is ``want``."""
+    route = rmsnorm_route(device_kernels(torch, fn))
+    if route != want:
+        raise AssertionError(f"{name} took the {route} route, not the "
+                             f"{want} one")
+    return route
+
+
+def rmsnorm_times(torch, dev, g, dts):
+    """K1 at every serving shape (RMS_ROWS x RMS_WIDTHS) in f32 and bf16,
+    each held against its plain version: the profiler's device time with
+    L2 cold (L2_FLUSH_BYTES zeroed before each call, the fill kernel left
+    out) and warm (back-to-back calls, x and out left in L2, so faster than
+    the HBM rate the bytes bound assumes); the share of that bound is the
+    cold time's, the only one the bound limits; the host-inclusive time (CUDA events over back-to-back calls), the plain
+    version's and ``F.rms_norm``'s; the device kernels of one call.  Also
+    the host's cost of one op call at (8, 2048) bf16, measured as
+    ``python -m repro_torch.kernels.build_routes`` measures its
+    ``host_us_per_rmsnorm_op_call``.  Returns (records, that cost in us)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.build_routes import host_us_per_call
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    recs = []
+    for R in RMS_ROWS:
+        for D in RMS_WIDTHS:
+            for dname, dt in dts.items():
+                x = torch.randn(R, D, generator=g, device=dev).to(dt)
+                w = torch.randn(D, generator=g, device=dev)
+                err = check_close(torch, "rmsnorm",
+                                  f"rmsnorm ({R},{D}) {dname}",
+                                  rmsnorm(x, w), rmsnorm_ref(x, w), dname)
+                run = lambda: rmsnorm(x, w)  # noqa: E731
+                warm_ms = profiled_ms(torch, run, match="rmsnorm")
+                cold_ms = profiled_ms(
+                    torch, lambda: (flush.zero_(), rmsnorm(x, w)),
+                    match="rmsnorm")
+                n_bytes = 2 * x.numel() * x.element_size() + 4 * D
+                bms, by = bound_ms(n_bytes, 4 * x.numel(), "float32")
+                kernels = device_kernels(torch, run)
+                rec = dict(
+                    shape=[R, D], dtype=dname, max_abs_err=err,
+                    device_ms_cold_l2=cold_ms, device_ms_warm_l2=warm_ms,
+                    bound_ms=bms, bound_by=by,
+                    share_of_bound=bms / cold_ms,
+                    ms=cuda_ms(torch, run),
+                    plain_ms=cuda_ms(torch, lambda: rmsnorm_ref(x, w)),
+                    library_ms=cuda_ms(
+                        torch, lambda: F.rms_norm(x, (D,), w, 1e-5)),
+                    k1_route=rmsnorm_route(kernels), kernels=kernels)
+                print(f"  rmsnorm R={R} D={D} {dname} err={err:.3e} "
+                      f"cold_l2_ms={cold_ms:.5f} warm_l2_ms={warm_ms:.5f} "
+                      f"bound_ms={bms:.5f} share={bms / cold_ms:.3f} "
+                      f"ms={rec['ms']:.5f} plain_ms={rec['plain_ms']:.5f} "
+                      f"library_ms={rec['library_ms']:.5f} "
+                      f"route={rec['k1_route']}", flush=True)
+                recs.append(rec)
+    x = torch.randn(8, 2048, generator=g, device=dev).bfloat16()
+    w = torch.randn(2048, generator=g, device=dev)
+    host_us = host_us_per_call(lambda: rmsnorm(x, w))
+    print(f"  rmsnorm host_us_per_rmsnorm_op_call={host_us:.3f}",
+          flush=True)
+    return recs, host_us
+
+
+def rmsnorm_cases(torch, dev, g, dts, table) -> int:
+    """K1 against its plain version, each in f32 and bf16: the JAX sweep's
+    (100, 96) and (256, 512); (4097, 768), whose last CTA of the vector
+    route is part empty; D 100 (the scalar route in bf16) and (8, 8192)
+    (wider than the vector route: the scalar route); contiguous views one
+    element into their buffers (x and w off 16-byte alignment: the scalar
+    route); every serving shape (``rmsnorm_times``).  Each call must launch
+    the route ``rmsnorm_route_for`` gives.  The table's row is llama's
+    prefill shape, (4096, 2048) bf16; every timed shape goes with it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    n = 0
+    for R, D in [(100, 96), (256, 512), (4097, 768), (64, 100), (8, 8192)]:
+        for dname, dt in dts.items():
+            x = torch.randn(R, D, generator=g, device=dev).to(dt)
+            w = torch.randn(D, generator=g, device=dev)
+            name = f"rmsnorm ({R},{D}) {dname}"
+            err = check_close(torch, "rmsnorm", name, rmsnorm(x, w),
+                              rmsnorm_ref(x, w), dname)
+            route = check_route(torch, name, lambda: rmsnorm(x, w),
+                                rmsnorm_route_for(x, w))
+            print(f"  {name} err={err:.3e} route={route}", flush=True)
+            n += 1
+    for dname, dt in dts.items():
+        R, D = 64, 2048
+        x = torch.randn(R * D + 1, generator=g, device=dev).to(dt)[1:] \
+            .view(R, D)
+        w = torch.randn(D + 1, generator=g, device=dev)[1:]
+        name = f"rmsnorm ({R},{D}) {dname} misaligned view"
+        err = check_close(torch, "rmsnorm", name, rmsnorm(x, w),
+                          rmsnorm_ref(x, w), dname)
+        route = check_route(torch, name, lambda: rmsnorm(x, w), "scalar")
+        print(f"  {name} err={err:.3e} route={route}", flush=True)
+        n += 1
+    recs, host_us = rmsnorm_times(torch, dev, g, dts)
+    for rec in recs:
+        if rec["k1_route"] != "vector":
+            raise AssertionError(f"rmsnorm {rec['shape']} {rec['dtype']} "
+                                 f"took the {rec['k1_route']} route, not the "
+                                 f"vector one")
+    row = next(r for r in recs if r["shape"] == [4 * 1024, 2048]
+               and r["dtype"] == "bfloat16")
+    x = torch.randn(4 * 1024, 2048, generator=g, device=dev).bfloat16()
+    w = torch.randn(2048, generator=g, device=dev)
+    table["rmsnorm"] = dict(
+        row, host_us_per_rmsnorm_op_call=host_us,
+        times=[{k: v for k, v in r.items() if k != "kernels"}
+               for r in recs],
+        library_kernels=device_kernels(
+            torch, lambda: F.rms_norm(x, (2048,), w, 1e-5)))
+    return n + len(recs)
 
 
 def ssd_cases(torch, dev, g, dts, table) -> int:
@@ -732,7 +862,10 @@ def phase_serve(torch, dev, model, cfg, launches):
 def phase_profile(torch, dev, model, cfg):
     """Device time by kernel for one prefill and one decode step at the
     served shapes (torch.profiler; kernel times sum to the busy time), and
-    for xlstm-125m one sLSTM block's prefill, a plain per-token loop."""
+    for xlstm-125m one sLSTM block's prefill, a plain per-token loop.  K1's
+    kernels there are counted and timed apart, and each must be its vector
+    route: the model's own calls (views of weights and activations
+    included) keep to it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import make_prefill_step, make_serve_step
@@ -767,13 +900,20 @@ def phase_profile(torch, dev, model, cfg):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        by_kernel, n_kernels = {}, 0
+        by_kernel, n_kernels, k1 = {}, 0, {"ms": 0.0, "kernels": 0}
         for ev in prof.key_averages():
             # device-side events only: a CPU op's device time repeats the
             # time of the kernels it launched
             if ev.device_type != DeviceType.CUDA:
                 continue
             us = ev.self_device_time_total
+            if "rmsnorm_" in ev.key:
+                if RMS_KERNELS["vector"] not in ev.key:
+                    raise AssertionError(f"{cfg.arch_id} {name}: K1 took "
+                                         f"another route than the vector "
+                                         f"one: {ev.key[:96]}")
+                k1["ms"] += us / 1e3 / n
+                k1["kernels"] += ev.count / n
             if us > 0:
                 by_kernel[ev.key[:48]] = by_kernel.get(ev.key[:48], 0.0) \
                     + us / 1e3 / n
@@ -784,6 +924,7 @@ def phase_profile(torch, dev, model, cfg):
              device_ms=device_ms if device_ms else "not measured",
              profiled_wall_ms=wall_ms,
              device_kernels_per_call=n_kernels / n,
+             rmsnorm_device_ms=k1["ms"], rmsnorm_kernels=k1["kernels"],
              top_kernels_ms={k: round(v, 4) for k, v in top})
 
 
@@ -916,7 +1057,16 @@ def run(torch) -> int:
             row.update({f: t[f] for f in ("tflops", "share_of_bound",
                                           "vs_library")})
         if k.name == "rmsnorm":
-            row["device_ms"] = t["device_ms"]
+            # share_of_bound is the cold-L2 device time's
+            row.update({f: t[f] for f in (
+                "device_ms_cold_l2", "device_ms_warm_l2", "share_of_bound",
+                "host_us_per_rmsnorm_op_call")})
+            # every serving shape in f32 and bf16, prefill and decode
+            row["times"] = [
+                {f: r[f] for f in ("shape", "dtype", "device_ms_cold_l2",
+                                   "device_ms_warm_l2", "ms", "bound_ms",
+                                   "share_of_bound", "k1_route")}
+                for r in t["times"]]
         rows.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

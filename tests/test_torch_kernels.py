@@ -43,9 +43,13 @@ def cuda():
 
 
 RMS_SHAPES = [(64, 128), (256, 512), (100, 96)]
+# the serving paths' widths (xlstm-125m 768 and 1536, llama 2048, zamba2's
+# gated norm 4096) at small row counts: the widths the CUDA kernel's vector
+# route specialises
+RMS_SERVING_SHAPES = [(8, 768), (64, 1536), (32, 2048), (16, 4096)]
 
 
-@pytest.mark.parametrize("R,D", RMS_SHAPES)
+@pytest.mark.parametrize("R,D", RMS_SHAPES + RMS_SERVING_SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_rmsnorm_plain_matches_pallas(R, D, dtype):
     rng = np.random.default_rng(0)
@@ -114,7 +118,14 @@ def test_cpu_tensors_take_the_plain_version():
 # --------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,D", RMS_SHAPES + [(4096, 2048)])
+@pytest.mark.parametrize(
+    "R,D", RMS_SHAPES + [(4096, 2048)]
+    # prefill (B*S rows) and decode (max_batch rows) at the serving widths;
+    # 4097 rows leave the last CTA of the vector route (2 warps a row at
+    # 768) part empty; D 100 (not a multiple of 8 values) and D 8192 (wider
+    # than the vector route's 4096) take the scalar route
+    + [(R, D) for D in (768, 1536, 4096) for R in (4096, 8)]
+    + [(4097, 768), (64, 100), (8, 8192)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_rmsnorm_kernel_matches_plain(cuda, R, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -124,6 +135,23 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, D, dtype):
     out = rmsnorm(x, w)
     torch.cuda.synchronize()
     assert RMSNORM.launches == before + 1
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, w).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_kernel_misaligned_view(cuda, dtype):
+    """Contiguous views one element into their buffers (x and w off 16-byte
+    alignment) take the scalar route and give the plain version's answer."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    R, D = 64, 2048
+    buf = torch.randn(R * D + 1, generator=g, device=cuda)
+    x = buf.to(DTYPES[dtype][1])[1:].view(R, D)
+    w = torch.randn(D + 1, generator=g, device=cuda)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 and w.data_ptr() % 16
+    out = rmsnorm(x, w)
+    torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, w).float(),
                                **_tol(dtype))
 
