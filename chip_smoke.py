@@ -28,6 +28,12 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                with L2 cold (its share of the bytes bound) and warm; every
                K1 case must launch the route its D, dtype and alignment
                give (``rmsnorm_route_for``), by the profiler's kernel names.
+               K1 and K2 under autograd (forward the kernel, backward the
+               plain version's gradient) must give the plain version's input
+               gradients bitwise, at the serving shapes in f32 and bf16; K3
+               and K4, which have no backward, must refuse inputs that need
+               grad; and ``torch.mm(..., out_dtype=f32)`` must still have no
+               derivative (the reason ``LogitsFn`` exists).
 3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
    a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
    each at its published widths and full depth, random weights from a
@@ -41,15 +47,31 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
    profile  -- device time by kernel of one prefill and one decode step
                (and, for xlstm-125m, of one sLSTM block's prefill), K1's
                among them; every K1 kernel there must be its vector route.
+4. train    -- llama3.2-1b at full width, bf16 params, f32 masters, random
+               weights from a seed: 6 steps of ``make_train_step`` (global
+               batch 8 x 1024 from ``SyntheticCorpus``, accum 2, remat,
+               AdamW) with K1 and K2 under autograd, then the same steps on
+               the plain path from the same weights.  Every parameter must
+               get a finite, nonzero gradient near the plain path's, K1 and
+               K2 must launch as the config gives
+               (``expected_train_launches``), the loss must fall, and each step's loss and grad norm must
+               lie within ``TRAIN_LOSS_ATOL`` / ``TRAIN_GNORM_RTOL`` of the
+               plain path's.  Prints step ms, tokens/s, peak GiB, the
+               model-FLOPs share and a profile of one step (loss-and-grad and
+               AdamW apart).  Then one step of a 2-layer model at the same
+               widths on the card against the CPU: loss and grad norm
+               (``CARD_VS_CPU_RTOL``) and every leaf's gradient by norm
+               (``CARD_VS_CPU_LEAF_RTOL``).
 
 Logits are held to the bound of tests/test_decode_consistency.py; where
 bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
 comparison is made in f32 on the same weights and must pass whole, and the
 bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
-path's prefill and serve phases and read just after; the run fails if a
-kernel of a path was never launched on it, or if a prefill or a decode step
-launched other counts than its model's layers give.  The line before the
+path's prefill and serve phases, and before the train phase's steps, and
+read just after; the run fails if a kernel of a path was never launched on
+it, or if a prefill, a decode step or a training step launched other
+counts than its model's layers give.  The line before the
 last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
@@ -338,10 +360,117 @@ def phase_kernels(torch, dev):
 
     n_ssd = ssd_cases(torch, dev, g, dts, table)
     n_mlstm = mlstm_cases(torch, dev, g, dts, table)
+    grads = autograd_cases(torch, dev, g, dts)
+    refusals = no_backward_cases(torch, dev, g)
     emit("kernels", cases_rmsnorm=n_rmsnorm,
          cases_flash_attention=len(cases), cases_ssd=n_ssd,
-         cases_mlstm=n_mlstm, main_shapes=table)
+         cases_mlstm=n_mlstm, autograd=grads, no_backward=refusals,
+         logits_autograd=logits_needs_function(torch, dev),
+         main_shapes=table)
     return table
+
+
+def autograd_cases(torch, dev, g, dts) -> dict:
+    """K1 and K2 under autograd, as the training path runs them
+    (``RMSNormFn``, ``FlashAttentionFn``: forward the kernel, backward the
+    gradient of the plain version), at the serving shapes in f32 and bf16:
+    each input's gradient under one incoming gradient must equal, bitwise,
+    the plain version's under autograd (the backward recomputes it).
+    Returns per-case max abs differences (all 0)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    def input_grads(fn, inputs, gout=None):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        if gout is None:
+            gout = torch.randn(out.shape, generator=g, device=dev).to(
+                out.dtype)
+        if out.grad_fn is None:
+            raise AssertionError("a kernel's output under autograd has no "
+                                 "grad_fn: its inputs would get no gradient")
+        return torch.autograd.grad(out, leaves, gout), gout
+
+    out = {}
+    cases = [("rmsnorm", (4 * 1024, D), dname) for D in RMS_WIDTHS
+             for dname in dts]
+    cases += [("flash_attention", (4, 1024, H, Kv, 64), dname)
+              for H, Kv in ((32, 8), (32, 32)) for dname in dts]
+    for kernel, shape, dname in cases:
+        dt = dts[dname]
+        if kernel == "rmsnorm":
+            R, D = shape
+            inputs = (torch.randn(R, D, generator=g, device=dev).to(dt),
+                      torch.randn(D, generator=g, device=dev))
+            fn, plain = rmsnorm, rmsnorm_ref
+        else:
+            B, S, H, Kv, D = shape
+            inputs = tuple(torch.randn(B, S, h, D, generator=g,
+                                       device=dev).to(dt)
+                           for h in (H, Kv, Kv))
+            fn, plain = flash_attention, attention_ref
+        got, gout = input_grads(fn, inputs)
+        want, _ = input_grads(plain, inputs, gout)
+        diffs = [(a.float() - b.float()).abs().max().item()
+                 for a, b in zip(got, want)]
+        name = f"{kernel} {list(shape)} {dname} under autograd"
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: input gradients differ from the "
+                                 f"plain version's: max abs {diffs}")
+        print(f"  {name}: input gradients equal the plain version's",
+              flush=True)
+        out[f"{kernel} {shape} {dname}"] = max(diffs)
+    return out
+
+
+def no_backward_cases(torch, dev, g) -> dict:
+    """K3 and K4 have no backward: on inputs that need grad they must
+    raise, not return an output with no gradient."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan.ops import ssd
+    from repro_torch.kernels.mlstm.ops import mlstm
+    x = torch.randn(1, 64, 2, 32, generator=g, device=dev).bfloat16()
+    dtv = F.softplus(torch.randn(1, 64, 2, generator=g, device=dev))
+    A = -torch.ones(2, device=dev)
+    B = torch.randn(1, 64, 1, 16, generator=g, device=dev).bfloat16()
+    q = torch.randn(1, 64, 2, 16, generator=g, device=dev).bfloat16()
+    gate = torch.randn(1, 64, 2, generator=g, device=dev)
+    calls = {"ssd": lambda t: ssd(t, dtv, A, B, B, chunk=32),
+             "mlstm": lambda t: mlstm(t, q, q, gate, gate, chunk=32)}
+    out = {}
+    for name, call in calls.items():
+        t = (x if name == "ssd" else q).clone().requires_grad_()
+        try:
+            call(t)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            out[name] = "refused: " + str(e).split(":")[0]
+        else:
+            raise AssertionError(f"{name} ran on an input that needs grad; "
+                                 f"it has no backward")
+        with torch.no_grad():
+            call(t)        # without grad it runs
+    return out
+
+
+def logits_needs_function(torch, dev) -> str:
+    """``LogitsFn`` exists because ``torch.mm(..., out_dtype=float32)`` on
+    bf16 operands has no derivative in this torch: fails if it has one
+    (then the Function may go), else returns the error it gives."""
+    x, e = (torch.ones(16, 32, device=dev, dtype=torch.bfloat16,
+                       requires_grad=True) for _ in range(2))
+    y = torch.mm(x, e.t(), out_dtype=torch.float32)
+    try:
+        torch.autograd.grad(y.sum(), (x, e))
+    except RuntimeError as err:
+        if "not implemented" not in str(err):
+            raise
+        return f"no derivative: {str(err)[:120]}"
+    raise AssertionError("torch.mm(..., out_dtype=float32) now has a "
+                         "derivative: LogitsFn may no longer be needed")
 
 
 # K1's widths on the serving paths: llama's norms and zamba2's pre-norms
@@ -928,6 +1057,310 @@ def phase_profile(torch, dev, model, cfg):
              top_kernels_ms={k: round(v, 4) for k, v in top})
 
 
+# the training run: llama3.2-1b at full width, bf16 params, f32 masters
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN = dict(seq=1024, global_batch=8, accum=2, steps=6)
+TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=2, total_steps=8)
+# kernel path against the plain path on the card, per step; the card
+# against the CPU on one step of a 2-layer model; the worst leaf's gradient
+# (by norm), kernel against plain path.  Measured on an H100 (PERF.md):
+# 1.6e-3, 9.5e-4, 1.3e-4 (the grad norm's; the loss's 1.1e-5) and 8.1e-3.
+TRAIN_LOSS_ATOL = 1e-2
+TRAIN_GNORM_RTOL = 2e-2
+CARD_VS_CPU_RTOL = 2e-3
+CARD_VS_CPU_LEAF_RTOL = 2e-2
+TRAIN_LEAF_GRAD_RTOL = 0.05
+
+
+def expected_train_launches(cfg, accum: int) -> dict:
+    """K1 and K2 launches of one training step of the dense model with
+    remat: per microbatch the forward's (two norms a layer and the final
+    norm; one attention a layer) and remat's recompute of every layer in
+    the backward (the final norm is not in a checkpointed layer); the
+    backward itself launches none (it is the plain versions' gradient)."""
+    L = cfg.n_layers
+    return {"rmsnorm": accum * ((2 * L + 1) + 2 * L),
+            "flash_attention": accum * (L + L), "ssd": 0, "mlstm": 0}
+
+
+def train_flops(cfg, n_params: int, tokens: int, batch: int,
+                seq: int) -> float:
+    """Model FLOPs of one step: 6·N·tokens for the weights' products
+    (forward and backward, the tied embedding counted once for the logits)
+    and 3x the causal attention forward's QKᵀ and P·V; remat's recompute
+    is left out."""
+    pairs = seq * (seq + 1) // 2
+    attn = 4 * cfg.resolved_head_dim * pairs * batch * cfg.n_heads \
+        * cfg.n_layers
+    return 6 * n_params * tokens + 3 * attn
+
+
+def kernel_group(name: str) -> str:
+    """The profile's group of a device kernel, by its name."""
+    if "rmsnorm_" in name:
+        return "K1 rmsnorm"
+    if "flash_fwd" in name:
+        return "K2 flash_attention"
+    if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+        return "cuBLAS GEMM"
+    if "softmax" in name.lower():
+        return "softmax"
+    if "reduce" in name.lower():
+        return "reductions"
+    if "elementwise" in name or "vectorized" in name:
+        return "elementwise"
+    return "other"
+
+
+def profile_groups(torch, fn) -> dict:
+    """One call of ``fn`` under the profiler: device ms by kernel group,
+    device kernels, wall ms (synchronised) and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, n_kernels, top = {}, 0, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        grp = kernel_group(ev.key)
+        groups[grp] = groups.get(grp, 0.0) + ms
+        n_kernels += ev.count
+        top[ev.key[:64]] = top.get(ev.key[:64], 0.0) + ms
+    busy = sum(groups.values())
+    return dict(wall_ms=wall_ms,
+                device_ms=busy if busy else "not measured",
+                idle_share=1 - busy / wall_ms if busy else "not measured",
+                device_kernels=n_kernels,
+                device_ms_by_group={k: round(v, 3) for k, v in
+                                    sorted(groups.items(),
+                                           key=lambda kv: -kv[1])},
+                top_kernels_ms={k: round(v, 3) for k, v in
+                                sorted(top.items(),
+                                       key=lambda kv: -kv[1])[:8]})
+
+
+def plain_backward_ms(torch, dev, cfg, rows: int) -> dict:
+    """Time of one call of K1's and K2's backward (the plain versions'
+    gradients, recomputed) at a training microbatch of ``rows`` x 1024
+    tokens of ``cfg``, bf16: the profile groups their kernels with the
+    others by name, so they are timed alone."""
+    from repro_torch.kernels.flash_attention.ref import \
+        attention_backward_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    hd, S = cfg.resolved_head_dim, TRAIN["seq"]
+    q, gout = (torch.randn(rows, S, cfg.n_heads, hd, generator=g,
+                           device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(rows, S, cfg.n_kv_heads, hd, generator=g,
+                        device=dev).bfloat16() for _ in range(2))
+    x = torch.randn(rows * S, cfg.d_model, generator=g, device=dev)\
+        .bfloat16()
+    w = torch.randn(cfg.d_model, generator=g, device=dev)
+    return {"flash_attention": cuda_ms(
+                torch, lambda: attention_backward_ref(q, k, v, gout), iters=5),
+            "rmsnorm": cuda_ms(
+                torch, lambda: rmsnorm_backward_ref(x, w, x), iters=10)}
+
+
+def run_steps(torch, dev, step, params, opt_state, batches):
+    """``step`` over ``batches``: per step loss, grad norm and synchronised
+    wall ms."""
+    from repro_torch.train import batch_to
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch_to(b, dev))
+        torch.cuda.synchronize()
+        rows.append(dict(loss=m["loss"].item(),
+                         grad_norm=m["grad_norm"].item(),
+                         ms=(time.perf_counter() - t0) * 1e3, lr=m["lr"]))
+    return rows, params, opt_state
+
+
+def phase_train(torch, dev, launches):
+    """llama3.2-1b trained at full width on the card through
+    ``make_train_step`` (bf16 params, f32 masters, remat, accum 2), with K1
+    and K2 under autograd, against the same steps on the plain path from
+    the same weights and batches; then one step of a 2-layer model at the
+    same widths on the card against the CPU."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.train import (batch_to, init_train_state,
+                                   make_loss_and_grad, make_train_step)
+    cfg = get_config(TRAIN_ARCH)
+    accum, steps = TRAIN["accum"], TRAIN["steps"]
+    model = build_model(cfg, device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = optim.AdamWConfig(**TRAIN_OPT)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+        global_batch=TRAIN["global_batch"]))
+    batches = [corpus.batch(i) for i in range(steps)]
+    tokens = TRAIN["global_batch"] * TRAIN["seq"]
+
+    # every leaf gets a finite, nonzero gradient on the kernel path, and
+    # each lies near the plain path's
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    lg = make_loss_and_grad(model, accum=accum)
+    b0 = batch_to(batches[0], dev)
+    _, g_kernel = lg(params, b0)
+    model.use_kernels = False
+    _, g_plain = lg(params, b0)
+    model.use_kernels = True
+    leaf = {}
+    for n, gk in g_kernel.items():
+        nk = gk.norm().item()
+        if not (math.isfinite(nk) and nk > 0 and torch.isfinite(gk).all()):
+            raise AssertionError(f"train: leaf {n} has gradient norm {nk} "
+                                 f"on the kernel path")
+        leaf[n] = ((gk - g_plain[n]).norm() / g_plain[n].norm()).item()
+    worst = max(leaf, key=leaf.get)
+    if leaf[worst] > TRAIN_LEAF_GRAD_RTOL:
+        raise AssertionError(f"train: leaf {worst}'s gradient lies "
+                             f"{leaf[worst]:.3e} (by norm) from the plain "
+                             f"path's")
+    del g_kernel, g_plain
+
+    # the kernel path's steps, then the plain path's from the same weights
+    step = make_train_step(model, ocfg, accum=accum, device=dev)
+    params, opt_state = init_train_state(model, ocfg, seed=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    kernel_rows, params, opt_state = run_steps(torch, dev, step, params,
+                                               opt_state, batches)
+    launches.read("train")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # one more step, profiled, in two windows: loss-and-grad, AdamW
+    b = batch_to(batches[0], dev)
+    holder = {}
+    prof_lg = profile_groups(torch, lambda: holder.update(
+        lg=lg(params, b)))
+    prof_opt = profile_groups(torch, lambda: optim.apply(
+        ocfg, params, holder["lg"][1], opt_state))
+    del params, opt_state, holder
+    per_step = {k: n / steps for k, n in launches.phases["train"].items()}
+    want = expected_train_launches(cfg, accum)
+    if per_step != want:
+        raise AssertionError(f"train: launches per step {per_step}, the "
+                             f"config gives {want}")
+    model.use_kernels = False
+    params, opt_state = init_train_state(model, ocfg, seed=None)
+    before = launches.snapshot()
+    plain_rows, params, opt_state = run_steps(torch, dev, step, params,
+                                              opt_state, batches)
+    if launches.snapshot() != before:
+        raise AssertionError("the plain training path launched a kernel")
+    model.use_kernels = True
+    del params, opt_state
+
+    losses = [r["loss"] for r in kernel_rows]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    dloss = [abs(a["loss"] - p["loss"]) for a, p in zip(kernel_rows,
+                                                         plain_rows)]
+    dnorm = [abs(a["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+             for a, p in zip(kernel_rows, plain_rows)]
+    if max(dloss) > TRAIN_LOSS_ATOL or max(dnorm) > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"train: kernel path against plain path: "
+                             f"|dloss| {dloss}, grad norm rel {dnorm}")
+    for i, (a, p) in enumerate(zip(kernel_rows, plain_rows)):
+        print(f"  train step {i}: loss {a['loss']:.6f} (plain "
+              f"{p['loss']:.6f})  grad_norm {a['grad_norm']:.6f} (plain "
+              f"{p['grad_norm']:.6f})  lr {a['lr']:.3e}  {a['ms']:.1f} ms "
+              f"(plain {p['ms']:.1f} ms)", flush=True)
+    step_s = sorted(r["ms"] for r in kernel_rows[1:])[(steps - 1) // 2] / 1e3
+    plain_s = sorted(r["ms"] for r in plain_rows[1:])[(steps - 1) // 2] / 1e3
+    flops = train_flops(cfg, n_params, tokens, TRAIN["global_batch"],
+                        TRAIN["seq"])
+    del model
+    torch.cuda.empty_cache()
+    # the backward of each K1 and K2 call: 2L + 1 norms and L attentions a
+    # microbatch
+    bwd = plain_backward_ms(torch, dev, cfg, TRAIN["global_batch"] // accum)
+    calls = {"rmsnorm": accum * (2 * cfg.n_layers + 1),
+             "flash_attention": accum * cfg.n_layers}
+    bwd_per_step = {k: bwd[k] * calls[k] for k in bwd}
+    emit("train", arch=TRAIN_ARCH, params=n_params, **TRAIN,
+         optimizer=TRAIN_OPT, steps_kernel=kernel_rows,
+         steps_plain=plain_rows, median_step_s=step_s,
+         plain_median_step_s=plain_s, steps_per_s=1 / step_s,
+         tokens_per_s=tokens / step_s, plain_tokens_per_s=tokens / plain_s,
+         peak_memory_gib=peak_gib, model_flops_per_step=flops,
+         model_flops_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+         flops_note="6*N*tokens + 3x causal attention; remat's recompute "
+                    "left out",
+         max_abs_dloss=max(dloss), max_rel_dgrad_norm=max(dnorm),
+         leaf_grad_rel_diff_max={worst: leaf[worst]},
+         launches_per_step=per_step,
+         plain_backward_ms_per_call=bwd,
+         plain_backward_ms_per_step=bwd_per_step,
+         profile_loss_and_grad=prof_lg,
+         profile_adamw=prof_opt)
+    card_vs_cpu(torch, dev, dataclasses.replace(cfg, n_layers=2))
+
+
+def card_vs_cpu(torch, dev, cfg):
+    """One training step of ``cfg`` (llama's widths, 2 layers), batch 2 x
+    128, bf16, on the card with the kernels and on the CPU from the same
+    weights: loss and grad norm within CARD_VS_CPU_RTOL, and every leaf's
+    gradient within CARD_VS_CPU_LEAF_RTOL of the CPU's by norm (the
+    embedding's is the one ``LogitsFn``'s backward makes on the card)."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import (batch_to, init_train_state,
+                                   make_loss_and_grad)
+    ocfg = optim.AdamWConfig(**TRAIN_OPT)
+    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=128, global_batch=2)).batch(0)
+    card = build_model(cfg, device=dev, seed=SEED)
+    cpu = build_model(cfg, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    out, grads = {}, {}
+    for name, model, d in (("card", card, dev),
+                           ("cpu", cpu, torch.device("cpu"))):
+        params, opt_state = init_train_state(model, ocfg, seed=None)
+        t0 = time.perf_counter()
+        # make_train_step's body, with the gradients kept
+        loss, grads[name] = make_loss_and_grad(model, accum=1)(
+            params, batch_to(batch, d))
+        _, _, m = optim.apply(ocfg, params, grads[name], opt_state)
+        out[name] = dict(loss=loss.item(), grad_norm=m["grad_norm"].item(),
+                         seconds=time.perf_counter() - t0)
+        del params, opt_state
+    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    leaf = {n: ((gk.cpu() - grads["cpu"][n]).norm()
+                / grads["cpu"][n].norm()).item()
+            for n, gk in grads["card"].items()}
+    worst = max(leaf, key=leaf.get)
+    emit("train card_vs_cpu", layers=cfg.n_layers, batch=2, seq=128,
+         **out, relative=rel, rtol=CARD_VS_CPU_RTOL,
+         leaf_grad_rel_diff={"worst": {worst: leaf[worst]},
+                             "embed": leaf["embed"]},
+         leaf_rtol=CARD_VS_CPU_LEAF_RTOL)
+    if max(rel.values()) > CARD_VS_CPU_RTOL:
+        raise AssertionError(f"train: the card against the CPU: {out}, "
+                             f"relative {rel}")
+    if leaf[worst] > CARD_VS_CPU_LEAF_RTOL:
+        raise AssertionError(f"train: leaf {worst}'s gradient on the card "
+                             f"lies {leaf[worst]:.3e} (by norm) from the "
+                             f"CPU's")
+    del card, cpu, grads
+    torch.cuda.empty_cache()
+
+
 class Launches:
     """Per-phase launch counts of the kernels' wrappers."""
 
@@ -1026,6 +1459,7 @@ def run(torch) -> int:
                                  f"launched: {path}")
         del model
         torch.cuda.empty_cache()
+    phase_train(torch, dev, launches)
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -1052,7 +1486,10 @@ def run(torch) -> int:
                "replaces": sources[k.name][1], "launches": total,
                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "launches_per_train_step":
+                   launches.phases["train"][k.name]
+                   // TRAIN["steps"]}
         if k.name in ("flash_attention", "ssd", "mlstm"):   # tensor cores
             row.update({f: t[f] for f in ("tflops", "share_of_bound",
                                           "vs_library")})

@@ -2,18 +2,46 @@
 for CPU tensors.  Same (B, S, H, D) interface as the JAX package's
 ``kernels/flash_attention/ops.py``; the kernel handles ragged sequence
 tails itself, so no block size is picked.  On the card f32 runs the scalar
-kernel and bf16 the tensor-core one (see ``kernel.cu``)."""
+kernel and bf16 the tensor-core one (see ``kernel.cu``).
+
+On the card the kernel runs inside ``FlashAttentionFn``, with grad or without:
+its forward is the kernel, its backward the gradient of the plain version
+(``attention_backward_ref``), as the JAX package differentiates its XLA
+attention and never its forward-only Pallas kernel.  A pybind call records
+no ``grad_fn``: without the Function, q, k, v and the projections upstream
+would get no gradient, and no error."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels._build import Kernel, extension
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward_ref, attention_ref)
 
 FLASH_ATTENTION = Kernel("flash_attention")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd of the plain version at the
+    incoming gradient, from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.softcap = causal, softcap
+        out = extension().flash_attention(q, k, v, causal, float(softcap))
+        FLASH_ATTENTION.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward_ref(q, k, v, g, causal=ctx.causal,
+                                            softcap=ctx.softcap)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,6 +74,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel needs q, k, v at 16-byte "
                          "aligned addresses (it copies rows 16 bytes at a "
                          "time)")
-    out = extension().flash_attention(q, k, v, causal, float(softcap))
-    FLASH_ATTENTION.launches += 1
-    return out
+    return FlashAttentionFn.apply(q, k, v, causal, softcap)

@@ -1,4 +1,5 @@
-"""Plain PyTorch attention: the CPU path and the CUDA kernel's oracle.
+"""Plain PyTorch attention: the CPU path, the CUDA kernel's oracle and its
+backward.
 
 Grouped-query attention without KV repetition: q (B, Sq, H, D) is viewed
 as (B, Sq, Kv, G, D) against k/v (B, Sk, Kv, D).  Scores, probabilities
@@ -8,6 +9,7 @@ package's ``models/layers.py::full_attention``.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -42,3 +44,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = gqa_out(p, v)
     return o.reshape(B, Sq, H, v.shape[3]).to(q.dtype)
+
+
+def attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           g: torch.Tensor, *, causal: bool = True,
+                           softcap: float = 0.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """(dq, dk, dv) of ``attention_ref`` at the incoming gradient ``g``:
+    autograd of the plain version, recomputed.  It is the port's
+    ``full_attention``, which the JAX package's training path
+    differentiates (its Pallas kernel is forward-only).  Its f32 scores and
+    probabilities take (B, Kv, G, Sq, Sk) each."""
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_ref(qd, kd, vd, causal=causal, softcap=softcap)
+        return torch.autograd.grad(out, (qd, kd, vd), g)

@@ -30,6 +30,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_chunked(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "the SSD scan kernel has no backward: its output would carry no "
+            "gradient.  Call it under torch.no_grad() on the card; the "
+            "plain version on CPU tensors is differentiable.  Training this "
+            "model on the card is ROADMAP.md queue 1 item 3")
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     check_chunk(S, chunk)

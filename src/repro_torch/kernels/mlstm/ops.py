@@ -30,6 +30,13 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_chunked(q, k, v, i_raw, f_raw, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, i_raw, f_raw)):
+        raise RuntimeError(
+            "the mLSTM kernel has no backward: its output would carry no "
+            "gradient.  Call it under torch.no_grad() on the card; the "
+            "plain version on CPU tensors is differentiable.  Training this "
+            "model on the card is ROADMAP.md queue 1 item 3")
     B, S, H, D = q.shape
     check_chunk(S, chunk)
     if chunk > MAX_CHUNK:

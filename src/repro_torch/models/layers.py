@@ -253,6 +253,24 @@ def mlp_apply(x: torch.Tensor, p: MLP, act: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 z_loss: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (B,S,V) any dtype; targets (B,S) int.  Returns the means of
+    (nll, z_loss * lse²), f32."""
+    lf = logits.float()
+    # the shift is detached on BOTH sides: subtracting a detached m but
+    # adding back a live one leaks an extra +1 into the argmax logit's
+    # gradient (d lse/dl = softmax + one_hot(argmax))
+    m = lf.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return (lse - gold).mean(), (z_loss * lse.square()).mean()
+
+
+# ---------------------------------------------------------------------------
 # depthwise causal convolution (Mamba2's short conv)
 # ---------------------------------------------------------------------------
 

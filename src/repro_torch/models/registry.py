@@ -92,18 +92,19 @@ def check_on_device(model: torch.nn.Module, device: torch.device) -> None:
 
 def build_model(cfg: ArchConfig, *, device=None,
                 dtype: torch.dtype = L.DEFAULT_DTYPE,
-                seed: Optional[int] = 0
+                seed: Optional[int] = 0, remat: bool = True
                 ) -> Union[TransformerLM, ZambaLM, XLSTMLM]:
     """The model of ``cfg``'s family on ``device`` (the card by default),
     with weights drawn from ``seed`` by a ``torch.Generator`` on that
     device; ``seed=None`` leaves them uninitialised for
-    ``load_state_dict``."""
+    ``load_state_dict``.  ``remat``: per-layer recompute in the backward,
+    the reference's default."""
     if cfg.family not in _MODELS:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
             f"item 10")
     dev = resolve_device(device)
-    model = _MODELS[cfg.family](cfg, device=dev, dtype=dtype)
+    model = _MODELS[cfg.family](cfg, device=dev, dtype=dtype, remat=remat)
     if seed is not None:
         model.init(torch.Generator(device=dev).manual_seed(seed))
     return model

@@ -6,19 +6,26 @@ JAX package's scanned, layer-stacked parameters.  Surface:
 
     init(generator)                       fill the weights from a seed
     forward_logits(tokens) -> logits      (B, S) -> (B, S, V) f32
+    loss(batch) -> (loss, metrics)        the training objective
     init_cache(batch_size, seq_len) -> cache
     decode_step(cache, tokens, pos) -> (logits, cache)
 
 ``use_kernels`` (True by default) sends RMSNorm and prefill attention of
-CUDA tensors to the hand-written kernels; set it to False for the plain
-PyTorch path, which the checks use as their reference on the card.
+CUDA tensors to the hand-written kernels, under autograd too (their
+backward is the gradient of the plain version); set it to False for the
+plain PyTorch path, which the checks use as their reference on the card.
+``remat`` (True by default, as the reference's ``build_model``) recomputes
+each layer's activations in the backward (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint`` on the reference's scanned layer); it
+acts only while grad mode is on, so serving is unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -59,12 +66,32 @@ def layer_decode(x, p: Block, cfg: ArchConfig, k_cache, v_cache, pos: int,
     return x + L.mlp_apply(h2, p.ffn, cfg.act)
 
 
+class LogitsFn(torch.autograd.Function):
+    """x (N, d) @ embedᵀ -> (N, V) f32 from bf16 operands on the card.
+
+    The backward takes the f32 cotangent to bf16 and returns dx and
+    d(embed) in bf16, accumulated in f32 by the GEMMs: no f32 copy of the
+    embedding.  (The reference's einsum transpose promotes the bf16 operand
+    and keeps the cotangent f32; the card rounds the cotangent once.)"""
+
+    @staticmethod
+    def forward(ctx, x, embed):
+        ctx.save_for_backward(x, embed)
+        return torch.mm(x, embed.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, embed = ctx.saved_tensors
+        gb = g.to(x.dtype)
+        return gb @ embed, gb.t() @ x
+
+
 class TransformerLM(nn.Module):
     """Dense transformer LM with tied embeddings; weights in (d_in, d_out)
     layout."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 dtype: torch.dtype = L.DEFAULT_DTYPE):
+                 dtype: torch.dtype = L.DEFAULT_DTYPE, remat: bool = True):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
@@ -76,6 +103,7 @@ class TransformerLM(nn.Module):
                 "ROADMAP.md queue 1 item 10 (dense variants)")
         self.cfg = cfg
         self.use_kernels = True
+        self.remat = remat
         self.embed = L.empty_param(cfg.vocab_size, cfg.d_model, dtype=dtype,
                                    device=device)
         self.final_norm = L.make_norm(cfg.d_model, cfg.norm, device=device)
@@ -102,9 +130,14 @@ class TransformerLM(nn.Module):
         # the embedding is gathered through f32, as the JAX forward does
         x = self.embed.float()[tokens].to(self.embed.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = layer_apply(x, blk, cfg, positions=positions,
-                            kernels=self.use_kernels)
+            if remat:
+                x = checkpoint(layer_apply, x, blk, cfg, positions=positions,
+                               kernels=self.use_kernels, use_reentrant=False)
+            else:
+                x = layer_apply(x, blk, cfg, positions=positions,
+                                kernels=self.use_kernels)
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return self._logits(x)
@@ -115,16 +148,28 @@ class TransformerLM(nn.Module):
         On the card, ``torch.mm(..., out_dtype=float32)`` accumulates and
         writes in f32 while reading the bf16 weights as they are; an f32
         copy of the tied 128256x2048 embedding would cost 1 GB of memory
-        and twice the bytes per decode step.  The CPU backend has no
-        ``out_dtype`` matmul, so there the operands are upcast.
+        and twice the bytes per decode step.  It runs in ``LogitsFn``
+        (this torch has no derivative for ``mm`` with ``out_dtype``), whose
+        backward keeps the operands bf16 too.  The CPU
+        backend has no ``out_dtype`` matmul, so there the operands are
+        upcast.
         """
-        w = self.embed.t()
         x2 = x.reshape(-1, x.shape[-1])
         if x2.is_cuda and x2.dtype != torch.float32:
-            out = torch.mm(x2, w, out_dtype=torch.float32)
+            out = LogitsFn.apply(x2, self.embed)
         else:
-            out = x2.float() @ w.float()
+            out = x2.float() @ self.embed.t().float()
         return out.reshape(*x.shape[:-1], out.shape[-1])
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens and targets (B, S) int.  Returns (nll + z_loss +
+        aux, {"nll", "z_loss", "aux"}), f32; aux is 0 for the dense
+        model."""
+        logits = self.forward_logits(batch["tokens"])
+        nll, zl = L.softmax_xent(logits, batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return nll + zl + aux, {"nll": nll, "z_loss": zl, "aux": aux}
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int,

@@ -248,7 +248,7 @@ class SuperBlocks(nn.Module):
 
 class XLSTMLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 dtype: torch.dtype = L.DEFAULT_DTYPE):
+                 dtype: torch.dtype = L.DEFAULT_DTYPE, remat: bool = True):
         super().__init__()
         if cfg.family != "ssm":
             raise ValueError(f"XLSTMLM needs an ssm (xLSTM) config, got "
@@ -259,6 +259,7 @@ class XLSTMLM(nn.Module):
                 "ROADMAP.md queue 1 item 10 (dense variants)")
         self.cfg = cfg
         self.use_kernels = True
+        self.remat = remat        # read by the loss, not ported yet
         se = cfg.slstm_every
         self.n_super = cfg.n_layers // se if se else 0
         self.n_m_per_super = se - 1 if se else 0
@@ -297,6 +298,11 @@ class XLSTMLM(nn.Module):
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=kernels)
         return x @ self.embed.t()
+
+    def loss(self, batch):
+        raise NotImplementedError(
+            "training this family is not ported yet: ROADMAP.md queue 1 "
+            "item 3 (the hybrid's and the xLSTM's loss)")
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, seq_len: int):
