@@ -62,14 +62,33 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                widths on the card against the CPU: loss and grad norm
                (``CARD_VS_CPU_RTOL``) and every leaf's gradient by norm
                (``CARD_VS_CPU_LEAF_RTOL``).
+5. sync     -- the two-tier gradient sync: the single-rank step (accum x
+               ranks microbatches) as the oracle, then 4 gloo ranks, each
+               a process on this card (``sync_rank``; they send their
+               numbers to this process, which alone prints), train
+               llama3.2-1b's widths at 2 layers on a (pod 2, data 2) grid
+               through ``hier_bucketed``, ``hier_bucketed_zero1``, zero1
+               with overlap, with int8 + error feedback, and with both (3
+               steps each, ``SYNC_RUNS``).  Gates: every rank's params
+               bitwise equal after every step; hier_bucketed's loss and
+               grad norm within ``SYNC_BOUND`` of the oracle; zero1 bitwise
+               hier_bucketed, overlap bitwise serial; K1 and K2 launches a
+               rank a step as the config gives.  Then the reduced model in
+               f32 (``SYNC_REDUCED_RUNS``): the deterministic reduce
+               bitwise on (2,2), (4,1) and (1,4), ``hier`` within
+               ``SYNC_BOUND`` of its oracle, int8 + error feedback closer
+               to the f32 curve than int8 alone.  Prints each run's step
+               and its split, the bytes over each tier and each tier's
+               rate beside the analytic SHM/NET model, each rank's peak
+               memory, and the MIG mode (information only).
 
 Logits are held to the bound of tests/test_decode_consistency.py; where
 bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
 comparison is made in f32 on the same weights and must pass whole, and the
 bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
-path's prefill and serve phases, and before the train phase's steps, and
-read just after; the run fails if a kernel of a path was never launched on
+path's prefill and serve phases, and before the train phase's steps (and
+in each rank before each step of the sync phase), and read just after; the run fails if a kernel of a path was never launched on
 it, or if a prefill, a decode step or a training step launched other
 counts than its model's layers give.  The line before the
 last is the kernel table as JSON; the last line is
@@ -1361,6 +1380,393 @@ def card_vs_cpu(torch, dev, cfg):
     torch.cuda.empty_cache()
 
 
+# the sync phase: 4 gloo ranks on the one card train llama3.2-1b's widths
+# through every manual-sync mode, against the single-rank step
+SYNC_ARCH = "llama3.2-1b"
+SYNC_RANKS = 4
+# 2 layers: four replicas share the card.  At 3 a rank peaks at 17.0 GiB
+# and the card kept 0.7-2.0 GiB free (PERF.md, PR 18), too little to count
+# on; at 2, 15.8 GiB a rank
+SYNC = dict(layers=2, seq=1024, global_batch=8, accum=2, steps=3)
+SYNC_GRIDS = {"22": ((2, 2), ("pod", "data")), "41": ((4, 1), ("pod", "data")),
+              "14": ((1, 4), ("pod", "data"))}
+# hier_bucketed against the single-rank step: the reference's bound between
+# modes (tests/test_bucketing.py:211-212)
+SYNC_BOUND = dict(rtol=1e-4, atol=1e-5)
+INT8_EF = dict(slow_compress_bits=8, slow_error_feedback=True)
+SYNC_RUNS = {
+    "hier_bucketed": dict(cross_pod_mode="hier_bucketed"),
+    "zero1": dict(cross_pod_mode="hier_bucketed_zero1"),
+    "zero1_overlap": dict(cross_pod_mode="hier_bucketed_zero1",
+                          overlap=True),
+    "zero1_int8_ef": dict(cross_pod_mode="hier_bucketed_zero1", **INT8_EF),
+    "zero1_int8_ef_overlap": dict(cross_pod_mode="hier_bucketed_zero1",
+                                  overlap=True, **INT8_EF),
+}
+# the reduced model, f32, for the gates that need many steps or several
+# grids (the optimizers of tests/test_torch_sync_train.py)
+SYNC_REDUCED = dict(seq=64, global_batch=8, accum=2)
+SYNC_REDUCED_OPT = {"a": dict(peak_lr=1e-3, warmup_steps=2, total_steps=30),
+                    "b": dict(peak_lr=3e-3, warmup_steps=2, total_steps=20)}
+SMALL_BUCKETS = 64 << 10
+SYNC_REDUCED_RUNS = {
+    "hier": dict(cross_pod_mode="hier", steps=4, grid="22", ocfg="a"),
+    **{f"det_{g}": dict(cross_pod_mode="hier_bucketed_zero1",
+                        deterministic_reduce=True, steps=4, grid=g,
+                        ocfg="a") for g in SYNC_GRIDS},
+    "curve_f32": dict(cross_pod_mode="hier_bucketed", steps=15, grid="22",
+                      ocfg="b", bucket_bytes=SMALL_BUCKETS),
+    "curve_int8": dict(cross_pod_mode="hier_bucketed", steps=15, grid="22",
+                       ocfg="b", bucket_bytes=SMALL_BUCKETS,
+                       slow_compress_bits=8),
+    "curve_int8_ef": dict(cross_pod_mode="hier_bucketed", steps=15,
+                          grid="22", ocfg="b", bucket_bytes=SMALL_BUCKETS,
+                          **INT8_EF),
+}
+SYNC_DEADLINE_S = 600
+# the split of a step, in order, from the collectives' STATS keys
+SYNC_SPLIT = ("loss_and_grad", "d2h", "fast reduce_scatter",
+              "slow all_reduce", "slow all_gather", "fast all_gather", "h2d",
+              "optimizer")
+
+
+def sync_batches(torch, dev, vocab: int, shape: dict, steps: int):
+    """Global batches 0..steps-1 of ``SyntheticCorpus`` (seed 0, one
+    shard) on ``dev``."""
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.train import batch_to
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=vocab, seq_len=shape["seq"],
+        global_batch=shape["global_batch"], seed=0))
+    return [batch_to(corpus.batch(i), dev) for i in range(steps)]
+
+
+def param_digest(torch, params) -> str:
+    """sha256 of the parameters' bytes, in name order."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(name.encode())
+        h.update(params[name].detach().contiguous().view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def sync_run(torch, dev, model, grid, kw: dict, batches, ocfg_kw: dict,
+             accum: int, kernels: dict) -> dict:
+    """One run of ``make_train_step`` on ``grid`` from the weights of SEED:
+    per step loss, grad norm, seconds (synchronised), launches of each
+    kernel, the collectives' split and the params' digest."""
+    from repro_torch import optim, train
+    from repro_torch.parallel.collectives import STATS
+    opts = {k: v for k, v in kw.items()
+            if k not in ("cross_pod_mode", "steps", "grid", "ocfg")}
+    mode = kw["cross_pod_mode"]
+    ocfg = optim.AdamWConfig(**ocfg_kw)
+    state_kw = {k: opts[k] for k in ("bucket_bytes", "slow_error_feedback",
+                                     "deterministic_reduce") if k in opts}
+    params, state = train.init_train_state(
+        model, ocfg, seed=SEED, grid=grid, cross_pod_mode=mode, **state_kw)
+    step = train.make_train_step(model, ocfg, accum=accum, device=dev,
+                                 grid=grid, cross_pod_mode=mode, **opts)
+    rows = []
+    for b in batches[:kw.get("steps", len(batches))]:
+        STATS.reset()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        rows.append(dict(loss=m["loss"].item(),
+                         grad_norm=m["grad_norm"].item(), seconds=seconds,
+                         launches={n: k.launches
+                                   for n, k in kernels.items()},
+                         stats=STATS.snapshot(),
+                         digest=param_digest(torch, params),
+                         # the card's free memory while every rank's
+                         # allocator still holds what its step reserved
+                         card_free_gib=torch.cuda.mem_get_info(dev)[0]
+                         / 2 ** 30))
+    out = {"steps": rows}
+    if isinstance(state, train.EFState):
+        out["residual_digest"] = param_digest(
+            torch, {str(i): r for i, r in enumerate(state.residuals)})
+        out["residual_abs_sum"] = float(sum(r.abs().sum().item()
+                                            for r in state.residuals))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_takes_cuda_tensors(torch, dev, grid) -> bool:
+    """Whether this torch's gloo reduce-scatters a CUDA tensor itself (the
+    port stages through host memory either way)."""
+    import torch.distributed as dist
+    import warnings
+    ax = grid.axis("data")
+    x = torch.ones(ax.size * 4, device=dev)
+    out = torch.empty(4, device=dev)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, x, group=ax.group)
+        return bool((out == ax.size).all().item())
+    except (RuntimeError, ValueError, TypeError):
+        return False
+
+
+def sync_rank(rank: int, world: int) -> dict:
+    """One rank of the sync phase's gloo job, on the card: the full-width
+    runs (``SYNC_RUNS``) on the (2, 2) grid, then the reduced runs
+    (``SYNC_REDUCED_RUNS``) on theirs.  Returns numbers for the parent,
+    which alone prints."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels._build import all_kernels
+    from repro_torch.models.registry import (build_model, get_config,
+                                             reduced_config)
+    from repro_torch.parallel.mesh import make_rank_grid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = {k.name: k for k in all_kernels()}
+    grids = {g: make_rank_grid(*SYNC_GRIDS[g]) for g in SYNC_GRIDS}
+    out = {"rank": rank,
+           "gloo_takes_cuda_tensors": gloo_takes_cuda_tensors(
+               torch, dev, grids["22"]), "full": {}, "reduced": {}}
+    cfg = dataclasses.replace(get_config(SYNC_ARCH), n_layers=SYNC["layers"])
+    model = build_model(cfg, device=dev, seed=None)
+    batches = sync_batches(torch, dev, cfg.vocab_size, SYNC, SYNC["steps"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, kw in SYNC_RUNS.items():
+        out["full"][name] = sync_run(torch, dev, model, grids["22"], kw,
+                                     batches, TRAIN_OPT, SYNC["accum"],
+                                     kernels)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["card_free_gib"] = min(s["card_free_gib"] for run in
+                               out["full"].values() for s in run["steps"])
+    out["card_total_gib"] = torch.cuda.mem_get_info(dev)[1] / 2 ** 30
+    del model, batches
+    torch.cuda.empty_cache()
+    rcfg = reduced_config(get_config(SYNC_ARCH))
+    rmodel = build_model(rcfg, device=dev, seed=None, dtype=torch.float32,
+                         remat=False)
+    rbatches = sync_batches(torch, dev, rcfg.vocab_size, SYNC_REDUCED, 15)
+    for name, kw in SYNC_REDUCED_RUNS.items():
+        out["reduced"][name] = sync_run(
+            torch, dev, rmodel, grids[kw["grid"]], kw, rbatches,
+            SYNC_REDUCED_OPT[kw["ocfg"]], SYNC_REDUCED["accum"], kernels)
+    return out
+
+
+def sync_oracle(torch, dev, model, batches, ocfg_kw: dict, accum: int,
+                steps: int) -> list:
+    """The single-rank ``"xla"`` step on the global batches, accum x ranks
+    microbatches: (loss, grad norm) per step."""
+    from repro_torch import optim
+    from repro_torch.train import init_train_state, make_train_step
+    ocfg = optim.AdamWConfig(**ocfg_kw)
+    step = make_train_step(model, ocfg, accum=accum * SYNC_RANKS,
+                           device=dev)
+    params, state = init_train_state(model, ocfg, seed=SEED)
+    rows = []
+    for b in batches[:steps]:
+        params, state, m = step(params, state, b)
+        rows.append((m["loss"].item(), m["grad_norm"].item()))
+    del params, state
+    return rows
+
+
+def tier_rates(stats: dict, grid_shape) -> dict:
+    """Per (tier op): bytes and seconds of one step, the effective GB/s and
+    bus GB/s, beside ``gpu_collective``'s SHM (fast) or NET (slow)
+    prediction for the same op and bytes."""
+    from repro_torch.collectives.transport import _ring_factor, \
+        gpu_collective
+    S, F = grid_shape
+    out = {}
+    for key, nbytes in stats["bytes"].items():
+        if " " not in key or nbytes < 1 << 16:    # not the scalars' psums
+            continue
+        tier, op = key.split(" ")
+        n = F if tier == "fast" else S
+        sec = stats["seconds"][key]
+        model = gpu_collective(op, nbytes, transport="SHM" if tier == "fast"
+                               else "NET", leaves_per_gpu=(n,))
+        out[key] = dict(bytes=nbytes, seconds=sec, calls=stats["calls"][key],
+                        algo_gbps=nbytes / sec / 1e9,
+                        bus_gbps=nbytes * _ring_factor(op, n) / sec / 1e9,
+                        model_transport=model.transport,
+                        model_seconds=model.time_s,
+                        model_bus_gbps=model.bus_bandwidth_gbps)
+    return out
+
+
+def phase_sync(torch, dev, launches):
+    """The two-tier gradient sync on the card: the oracle (the single-rank
+    step, accum x ranks microbatches) in this process, then 4 gloo ranks,
+    each a process on this card, through every manual-sync mode; the
+    gates, the split of a step and the tiers' rates against the analytic
+    model."""
+    import dataclasses
+    from repro_torch.models.registry import (build_model, get_config,
+                                             reduced_config)
+    from repro_torch.parallel.launch import run_ranks
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SYNC_ARCH), n_layers=SYNC["layers"])
+    model = build_model(cfg, device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = sync_batches(torch, dev, cfg.vocab_size, SYNC, SYNC["steps"])
+    oracle = sync_oracle(torch, dev, model, batches, TRAIN_OPT,
+                         SYNC["accum"], SYNC["steps"])
+    del model, batches
+    rcfg = reduced_config(get_config(SYNC_ARCH))
+    rmodel = build_model(rcfg, device=dev, seed=SEED, dtype=torch.float32,
+                         remat=False)
+    rbatches = sync_batches(torch, dev, rcfg.vocab_size, SYNC_REDUCED, 4)
+    roracle = sync_oracle(torch, dev, rmodel, rbatches,
+                          SYNC_REDUCED_OPT["a"], SYNC_REDUCED["accum"], 4)
+    del rmodel, rbatches
+    torch.cuda.empty_cache()
+    mig = subprocess.run(
+        ["nvidia-smi", "--query-gpu=mig.mode.current",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    print(f"  sync: MIG mode {mig!r} (information only)", flush=True)
+    parent_gib = torch.cuda.memory_reserved(dev) / 2 ** 30
+    # the ranks' allocators: four processes share the card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    res = run_ranks(sync_rank, SYNC_RANKS, deadline_s=SYNC_DEADLINE_S,
+                    timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    full = [r["full"] for r in res]
+    reduced = [r["reduced"] for r in res]
+
+    def losses(run):
+        return [s["loss"] for s in run["steps"]]
+
+    def digests(run):
+        return [s["digest"] for s in run["steps"]]
+
+    # every rank holds the same parameters after every step
+    for part in (full, reduced):
+        for name, run in part[0].items():
+            n = int(np.prod(SYNC_GRIDS[SYNC_REDUCED_RUNS[name]["grid"]][0]
+                            if part is reduced else SYNC_GRIDS["22"][0]))
+            for r in range(1, n):
+                if (digests(part[r][name]) != digests(run)
+                        or losses(part[r][name]) != losses(run)):
+                    raise AssertionError(f"sync {name}: rank {r}'s params "
+                                         f"or losses differ from rank 0's")
+    # hier_bucketed against the single-rank step
+    got = [(s["loss"], s["grad_norm"]) for s in
+           full[0]["hier_bucketed"]["steps"]]
+    rel = np.abs(np.subtract(got, oracle)) / np.abs(oracle)
+    np.testing.assert_allclose(got, oracle, **SYNC_BOUND,
+                               err_msg="sync: hier_bucketed vs oracle")
+    # the bitwise invariants of the reference
+    for a, b in (("hier_bucketed", "zero1"), ("zero1", "zero1_overlap"),
+                 ("zero1_int8_ef", "zero1_int8_ef_overlap")):
+        for r in range(SYNC_RANKS):
+            ra, rb = full[r][a], full[r][b]
+            if (losses(ra) != losses(rb) or digests(ra) != digests(rb)
+                    or ra.get("residual_digest") != rb.get(
+                        "residual_digest")):
+                raise AssertionError(f"sync: {b} is not bitwise {a} on "
+                                     f"rank {r}")
+    if not full[0]["zero1_int8_ef"]["residual_abs_sum"] > 0:
+        raise AssertionError("sync: the int8 residuals stayed zero")
+    # K1 and K2 launch as the config gives, in every rank's every step
+    want = expected_train_launches(cfg, SYNC["accum"])
+    for r in range(SYNC_RANKS):
+        for name, run in full[r].items():
+            for s in run["steps"]:
+                if s["launches"] != want:
+                    raise AssertionError(f"sync {name}: rank {r} launched "
+                                         f"{s['launches']} in a step, the "
+                                         f"config gives {want}")
+    launches.phases["sync"] = {
+        k: sum(s["launches"][k] for fr in full for run in fr.values()
+               for s in run["steps"]) for k in want}
+    # reduced width: the deterministic reduce across factorizations, the
+    # per-tensor mode against the oracle, int8 with error feedback
+    det_runs = [reduced[0][f"det_{g}"] for g in SYNC_GRIDS]
+    for other in det_runs[1:]:
+        if (losses(other) != losses(det_runs[0])
+                or digests(other) != digests(det_runs[0])):
+            raise AssertionError("sync: the deterministic reduce differs "
+                                 "across (2,2), (4,1) and (1,4)")
+    rgot = [(s["loss"], s["grad_norm"]) for s in
+            reduced[0]["hier"]["steps"]]
+    np.testing.assert_allclose(rgot, roracle, **SYNC_BOUND,
+                               err_msg="sync: hier vs oracle (reduced)")
+    base = np.asarray(losses(reduced[0]["curve_f32"]))
+    dev_int8 = np.abs(np.asarray(losses(reduced[0]["curve_int8"])) - base)
+    dev_ef = np.abs(np.asarray(losses(reduced[0]["curve_int8_ef"])) - base)
+    if not dev_ef.sum() < dev_int8.sum():
+        raise AssertionError(f"sync: int8 with error feedback deviates "
+                             f"{dev_ef.sum()} from f32, int8 alone "
+                             f"{dev_int8.sum()}")
+
+    # the report: rank 0's median step of each full-width run, its split
+    report = {}
+    for name, run in full[0].items():
+        steps = run["steps"]
+        mid = sorted(steps[1:], key=lambda s: s["seconds"])[
+            (len(steps) - 2) // 2]
+        secs = mid["stats"]["seconds"]
+        split = {k: secs.get(k, 0.0) for k in SYNC_SPLIT}
+        split["other"] = mid["seconds"] - sum(split.values())
+        report[name] = dict(
+            step_s=[s["seconds"] for s in steps], median_step_s=mid["seconds"],
+            tokens_per_s=SYNC["global_batch"] * SYNC["seq"] / mid["seconds"],
+            loss=losses(run), grad_norm=[s["grad_norm"] for s in steps],
+            split_s=split,
+            sync_share=1 - (split["loss_and_grad"] + split["optimizer"])
+            / mid["seconds"],
+            bytes_per_tier={t: sum(v for k, v in mid["stats"]["bytes"].items()
+                                   if k.startswith(t + " "))
+                            for t in ("fast", "slow")},
+            tiers=tier_rates(mid["stats"], SYNC_GRIDS["22"][0]))
+        print(f"  sync {name}: step {mid['seconds']:.3f} s (steps "
+              f"{', '.join(f'{s:.3f}' for s in report[name]['step_s'])}); "
+              f"split " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; bytes fast {report[name]['bytes_per_tier']['fast']}, "
+              f"slow {report[name]['bytes_per_tier']['slow']}", flush=True)
+        for key, t in report[name]["tiers"].items():
+            print(f"    {name} {key}: {t['bytes']} B in {t['seconds']:.4f} s"
+                  f" = {t['algo_gbps']:.3f} GB/s ({t['bus_gbps']:.3f} bus);"
+                  f" the {t['model_transport']} model: "
+                  f"{t['model_seconds']:.4f} s, {t['model_bus_gbps']:.3f} "
+                  f"GB/s bus", flush=True)
+    for i, ((lo, go), (lg, gg)) in enumerate(zip(oracle, got)):
+        print(f"  sync step {i}: hier_bucketed loss {lg:.6f} grad_norm "
+              f"{gg:.6f}; single rank {lo:.6f} {go:.6f}", flush=True)
+    emit("sync", arch=SYNC_ARCH, params=n_params, ranks=SYNC_RANKS,
+         grid=SYNC_GRIDS["22"], **SYNC,
+         optimizer=TRAIN_OPT, seconds=time.perf_counter() - t_phase,
+         ranks_seconds=ranks_s, mig_mode=mig,
+         gloo_takes_cuda_tensors=[r["gloo_takes_cuda_tensors"] for r in res],
+         peak_memory_gib=[r["peak_memory_gib"] for r in res],
+         card_free_gib=[r["card_free_gib"] for r in res],
+         card_total_gib=res[0]["card_total_gib"],
+         parent_reserved_gib=parent_gib,
+         oracle=oracle, hier_bucketed_rel_diff=rel.max(axis=0).tolist(),
+         bound=SYNC_BOUND, launches_per_step_per_rank=want,
+         runs=report,
+         reduced=dict(
+             oracle=roracle,
+             hier=[(s["loss"], s["grad_norm"])
+                   for s in reduced[0]["hier"]["steps"]],
+             det_losses=losses(det_runs[0]),
+             int8_dev_sum=float(dev_int8.sum()),
+             int8_ef_dev_sum=float(dev_ef.sum())))
+
+
 class Launches:
     """Per-phase launch counts of the kernels' wrappers."""
 
@@ -1460,6 +1866,7 @@ def run(torch) -> int:
         del model
         torch.cuda.empty_cache()
     phase_train(torch, dev, launches)
+    phase_sync(torch, dev, launches)
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -1489,7 +1896,10 @@ def run(torch) -> int:
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "launches_per_train_step":
                    launches.phases["train"][k.name]
-                   // TRAIN["steps"]}
+                   // TRAIN["steps"],
+               "launches_per_sync_step_per_rank":
+                   launches.phases["sync"][k.name]
+                   // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"])}
         if k.name in ("flash_attention", "ssd", "mlstm"):   # tensor cores
             row.update({f: t[f] for f in ("tflops", "share_of_bound",
                                           "vs_library")})

@@ -365,29 +365,9 @@ def test_train_curve_matches_jax(jax_side, dtype):
     assert tl[-1] < tl[0]
 
 
-@pytest.mark.parametrize("kw", [
-    dict(cross_pod_mode="hier"), dict(cross_pod_mode="hier_bucketed"),
-    dict(cross_pod_mode="hier_bucketed_zero1"),
-    dict(cross_pod_mode="compressed"), dict(bucket_bytes=1 << 20),
-    dict(slow_compress_bits=8), dict(overlap=True),
-    dict(slow_error_feedback=True), dict(deterministic_reduce=True)])
-def test_manual_sync_modes_are_not_ported(kw):
-    """The manual-sync modes raise, naming their queue items; their options
-    are not parameters of the port's step until those items bring them."""
-    model = build_model(reduced_config(get_config(ARCH)), device="cpu")
-    if "cross_pod_mode" in kw:
-        with pytest.raises(NotImplementedError, match="items 5-6"):
-            train.make_train_step(model, optim.AdamWConfig(), device="cpu",
-                                  **kw)
-    else:
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            train.make_train_step(model, optim.AdamWConfig(), device="cpu",
-                                  **kw)
-
-
 def test_unknown_cross_pod_mode_is_refused():
     model = build_model(reduced_config(get_config(ARCH)), device="cpu")
-    with pytest.raises(NotImplementedError, match="'ring' is not ported"):
+    with pytest.raises(ValueError, match="unknown cross_pod_mode 'ring'"):
         train.make_train_step(model, optim.AdamWConfig(), device="cpu",
                               cross_pod_mode="ring")
 
