@@ -81,6 +81,41 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                and its split, the bytes over each tier and each tier's
                rate beside the analytic SHM/NET model, each rank's peak
                memory, and the MIG mode (information only).
+6. ckpt     -- the sharded checkpoint at full width: llama3.2-1b (16
+               layers, the train phase's batch and optimizer) through
+               ``Trainer`` with K1 and K2: two uninterrupted runs of 4
+               steps (the card's own spread), a run of 2 steps that saves
+               at its end (async, sharded, ≈ 17 GB), a restore of that
+               save timed alone, and a fresh ``Trainer`` resuming from it
+               to step 4 (``CKPT``).  Gates: the restored state is the
+               saved one bit for bit (per-leaf digests,
+               ``ckpt.state.state_digest``); the resumed run's losses and
+               final state are the uninterrupted run's (bitwise when the
+               two uninterrupted runs are; else within their spread); K1
+               and K2 launch as ``expected_train_launches`` gives, K3 and
+               K4 never.  Prints the checkpoint's bytes, save and restore
+               s and GB/s, and the launches a step as counted.
+7. elastic  -- the elastic handoff: 4 gloo ranks on the card
+               (``elastic_rank``) run ``ElasticDriver`` on llama3.2-1b's
+               widths at 1 layer (``ELASTIC``: on (4,1) each rank holds the
+               whole optimizer state, which at 2 layers ran the card out of
+               memory): the uninterrupted run, (2,2) -> (4,1)
+               -> (1,4) -> (2,2) at steps 2, 4 and 6 of 8
+               (``ELASTIC_SCHEDULE``) and a drain cycle; then the reduced
+               model in f32 (``ELASTIC_REDUCED``): a handoff against a
+               drain cycle at the same step, and the job SIGKILLed by its
+               fault plan in the commit window of a handoff
+               (``ELASTIC_KILL``) and relaunched with ``resume=True``.
+               Gates: every handoff verified (the restored state's
+               digests the saved state's); every run's losses bitwise the
+               uninterrupted run's; in every run of every rank, the
+               relaunch too, K1 and K2 launch a step as the config gives
+               (the reduced model has no remat) and K3 and K4 never; the
+               killed job leaves the previous commit and its relaunch
+               continues bitwise.  Prints every handoff's save, restore,
+               setup and first-step s and bytes; its ``cycle_s`` is save +
+               setup + restore, the first step apart.
+               Both phases write under ``chiprun_out/`` and delete it.
 
 Logits are held to the bound of tests/test_decode_consistency.py; where
 bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
@@ -88,7 +123,9 @@ comparison is made in f32 on the same weights and must pass whole, and the
 bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
 path's prefill and serve phases, and before the train phase's steps (and
-in each rank before each step of the sync phase), and read just after; the run fails if a kernel of a path was never launched on
+in each rank before each step of the sync phase, before the ckpt phase's
+runs and in each rank before each elastic run), and read just after; the
+run fails if a kernel of a path was never launched on
 it, or if a prefill, a decode step or a training step launched other
 counts than its model's layers give.  The line before the
 last is the kernel table as JSON; the last line is
@@ -99,6 +136,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1091,15 +1129,16 @@ CARD_VS_CPU_LEAF_RTOL = 2e-2
 TRAIN_LEAF_GRAD_RTOL = 0.05
 
 
-def expected_train_launches(cfg, accum: int) -> dict:
-    """K1 and K2 launches of one training step of the dense model with
-    remat: per microbatch the forward's (two norms a layer and the final
-    norm; one attention a layer) and remat's recompute of every layer in
+def expected_train_launches(cfg, accum: int, remat: bool = True) -> dict:
+    """K1 and K2 launches of one training step of the dense model: per
+    microbatch the forward's (two norms a layer and the final norm; one
+    attention a layer) and, with remat, its recompute of every layer in
     the backward (the final norm is not in a checkpointed layer); the
     backward itself launches none (it is the plain versions' gradient)."""
     L = cfg.n_layers
-    return {"rmsnorm": accum * ((2 * L + 1) + 2 * L),
-            "flash_attention": accum * (L + L), "ssd": 0, "mlstm": 0}
+    R = L if remat else 0
+    return {"rmsnorm": accum * ((2 * L + 1) + 2 * R),
+            "flash_attention": accum * (L + R), "ssd": 0, "mlstm": 0}
 
 
 def train_flops(cfg, n_params: int, tokens: int, batch: int,
@@ -1767,6 +1806,447 @@ def phase_sync(torch, dev, launches):
              int8_ef_dev_sum=float(dev_ef.sum())))
 
 
+# ---------------------------------------------------------------------------
+# checkpoint and elastic handoff
+# ---------------------------------------------------------------------------
+
+CKPT_ARCH = "llama3.2-1b"
+# full width, 16 layers, the train phase's batch: a run of 4 steps (twice:
+# the card's own spread), one of 2 steps that saves at its end (async,
+# sharded), and a resume from that save to 4.  The checkpoint holds bf16
+# params and f32 masters and moments, ≈ 17 GB
+CKPT = dict(seq=1024, global_batch=8, accum=2, steps=4, save_at=2)
+# everything the phases write lies under the gitignored chiprun_out/ and
+# is deleted when the phase ends
+CKPT_DIR = os.path.join(REPO, "chiprun_out", "ckpt_phase")
+ELASTIC_DIR = os.path.join(REPO, "chiprun_out", "elastic_phase")
+ELASTIC_ARCH = "llama3.2-1b"
+ELASTIC_RANKS = 4
+# llama3.2-1b's widths at 1 layer and half the sync phase's sequence: four
+# ranks share the card, and on the (4,1) grid the fast axis has one rank,
+# so each holds the whole f32 optimizer state (and the step's new one
+# beside it).  At the sync phase's 2 layers that took ≈ 19.5 GiB a rank
+# and ran the card out of memory, at sequence 1024 and at 512 (PERF.md);
+# (2,2) -> (4,1) -> (1,4) -> (2,2) at steps 2, 4 and 6 of 8, as in
+# tests/test_fault_matrix.py
+ELASTIC = dict(layers=1, seq=512, global_batch=8, accum=2, steps=8,
+               bucket_bytes=32 << 20)
+ELASTIC_SCHEDULE = ((2, (4, 1)), (4, (1, 4)), (6, (2, 2)))
+# the reduced model in f32: a handoff against a drain cycle at one step,
+# and the kill-and-resume, whose relaunch replays 6 steps and 2 handoffs
+ELASTIC_REDUCED = dict(seq=64, global_batch=8, accum=2, steps=8,
+                       bucket_bytes=64 << 10)
+ELASTIC_DRAIN = ((2, (4, 1)),)
+# the job is killed in the commit window of the second handoff (the
+# manifest written, the renames pending): the relaunch resumes at step 2
+ELASTIC_KILL = ("sharded.manifest", 2, 2)
+ELASTIC_DEADLINE_S = 900
+
+
+def _disk_free_gb(path: str) -> float:
+    import shutil
+    os.makedirs(path, exist_ok=True)
+    return shutil.disk_usage(path).free / 1e9
+
+
+def _trainer_run(torch, dev, model, ocfg, dcfg, n, *, every, resume,
+                 fallback=False):
+    """One ``Trainer`` run of ``n`` steps (every step logged) from the
+    weights of SEED or, resuming, from the latest commit: its losses, its
+    final state's digest (``ckpt.state.state_digest``), its checkpoint
+    records, the recovery report and its wall seconds."""
+    from repro_torch.ckpt.state import state_digest, state_tree
+    from repro_torch.train import Trainer, TrainerConfig
+    tcfg = TrainerConfig(n_steps=n, ckpt_every=every, ckpt_dir=CKPT_DIR,
+                         log_every=1, accum=CKPT["accum"], async_ckpt=True,
+                         save_sharded=True, fallback_on_corrupt=fallback)
+    trainer = Trainer(model, ocfg, tcfg, dcfg, device=dev)
+    t0 = time.perf_counter()
+    out = trainer.run(seed=SEED, resume=resume)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    digest = state_digest(state_tree(out["params"], out["opt_state"]))
+    rec = out["recovery"]
+    del out["params"], out["opt_state"]
+    torch.cuda.empty_cache()
+    return dict(losses=[h["loss"] for h in out["history"]],
+                step_s=[h["sec_per_step"] for h in out["history"]],
+                digest=digest, checkpoints=trainer.checkpoints,
+                restored=rec.restored_step if rec is not None else None,
+                seconds=seconds)
+
+
+def phase_ckpt(torch, dev, launches):
+    """The sharded checkpoint at full width on the card: llama3.2-1b
+    trained through ``Trainer`` (K1 and K2 under autograd), an async
+    sharded save at step 2, a timed restore of it, and a fresh ``Trainer``
+    that resumes from it.  Gates: the restored state is the saved state
+    bit for bit (per-leaf digests), the resumed run's losses and final
+    state are the uninterrupted run's, and K1 and K2 launch as
+    ``expected_train_launches`` gives, K3 and K4 never.  Returns the
+    kernels' launches a step, as counted."""
+    import gc
+    import shutil
+    from repro_torch import ckpt, optim
+    from repro_torch.ckpt.state import state_digest, state_tree
+    from repro_torch.data import DataConfig
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.train import init_train_state
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free_gb = _disk_free_gb(CKPT_DIR)
+    cfg = get_config(CKPT_ARCH)
+    model = build_model(cfg, device=dev, seed=SEED)
+    ocfg = optim.AdamWConfig(**TRAIN_OPT)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CKPT["seq"],
+                      global_batch=CKPT["global_batch"])
+    n, k = CKPT["steps"], CKPT["save_at"]
+    launches.reset()
+    runs = {}
+    try:
+        # two uninterrupted runs: the card's own spread
+        for name in ("uninterrupted", "uninterrupted_again"):
+            runs[name] = _trainer_run(torch, dev, model, ocfg, dcfg, n,
+                                      every=10 ** 6, resume=False)
+        runs["saved"] = _trainer_run(torch, dev, model, ocfg, dcfg, k,
+                                     every=k, resume=False)
+        sdir = ckpt.step_dir(CKPT_DIR, k)
+        nbytes = sum(os.path.getsize(os.path.join(sdir, f))
+                     for f in os.listdir(sdir))
+        # the restore, timed alone, into a fresh state of the same shapes
+        params, opt_state = init_train_state(model, ocfg, seed=SEED)
+        template = state_tree(params, opt_state)
+        del params, opt_state
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        step, tree = ckpt.restore_sharded(sdir, template)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        del template
+        restored = state_digest(tree)
+        del tree
+        torch.cuda.empty_cache()
+        runs["resumed"] = _trainer_run(torch, dev, model, ocfg, dcfg, n,
+                                       every=10 ** 6, resume=True,
+                                       fallback=True)
+        launches.read("ckpt")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+
+    if step != k or restored != runs["saved"]["digest"]:
+        bad = [key for key, d in restored.items()
+               if runs["saved"]["digest"].get(key) != d]
+        raise AssertionError(f"ckpt: the restored state is not the saved "
+                             f"one (step {step}; leaves {bad[:5]})")
+    if runs["resumed"]["restored"] != k:
+        raise AssertionError(f"ckpt: the resumed Trainer restored step "
+                             f"{runs['resumed']['restored']}, not {k}")
+    ref, again = runs["uninterrupted"], runs["uninterrupted_again"]
+    got = runs["saved"]["losses"] + runs["resumed"]["losses"]
+    bitwise_runs = (ref["losses"] == again["losses"]
+                    and ref["digest"] == again["digest"])
+    if bitwise_runs:
+        if got != ref["losses"] or runs["resumed"]["digest"] != ref["digest"]:
+            raise AssertionError(f"ckpt: save at {k} and resume is not "
+                                 f"bitwise the uninterrupted run: {got} vs "
+                                 f"{ref['losses']}")
+    else:
+        # the card's two uninterrupted runs differ: hold the resumed run
+        # to their spread
+        spread = np.abs(np.subtract(again["losses"], ref["losses"])).max()
+        dev_ = np.abs(np.subtract(got, ref["losses"])).max()
+        if dev_ > spread:
+            raise AssertionError(f"ckpt: the resumed run lies {dev_} from "
+                                 f"the uninterrupted one, two "
+                                 f"uninterrupted runs {spread}")
+    # K1 and K2 launch as the config gives, the other kernels never
+    want = expected_train_launches(cfg, CKPT["accum"])
+    n_steps = 2 * n + k + (n - k)
+    got_l = launches.phases["ckpt"]
+    if got_l != {name: w * n_steps for name, w in want.items()}:
+        raise AssertionError(f"ckpt: launches {got_l} in {n_steps} steps, "
+                             f"the config gives {want} a step")
+    per_step = {name: got // n_steps for name, got in got_l.items()}
+    rec = runs["saved"]["checkpoints"][0]
+    gb = nbytes / 1e9
+    print(f"  ckpt: {gb:.3f} GB at step {k}; save {rec['save_s']:.3f} s ({gb / rec['save_s']:.3f} GB/s; "
+          f"the step waited {rec['host_copy_s']:.3f} s for the host copy), "
+          f"restore {restore_s:.3f} s ({gb / restore_s:.3f} GB/s); "
+          f"runs bitwise: {bitwise_runs}", flush=True)
+    emit("ckpt", arch=CKPT_ARCH, **CKPT, optimizer=TRAIN_OPT,
+         params=sum(p.numel() for p in model.parameters()),
+         disk_free_gb=free_gb, checkpoint_bytes=nbytes,
+         save_s=rec["save_s"], host_copy_s=rec["host_copy_s"],
+         save_gbps=gb / rec["save_s"], restore_s=restore_s,
+         restore_gbps=gb / restore_s,
+         uninterrupted_bitwise_twice=bitwise_runs,
+         losses={name: r["losses"] for name, r in runs.items()},
+         step_s={name: r["step_s"] for name, r in runs.items()},
+         run_s={name: r["seconds"] for name, r in runs.items()},
+         launches_per_step=per_step, seconds=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def _driver_runs(torch, dev, model, runs: dict, shape: dict, kernels,
+                 plan=None) -> dict:
+    """``ElasticDriver`` runs in this rank: per run its losses, grids,
+    handoff measurements, start step and the kernels' launches."""
+    import contextlib
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.elastic_driver import ElasticDriver, ReconfigEvent
+    from repro_torch.faults import FaultPlan, FaultSpec, install
+    out = {}
+    for name, run in runs.items():
+        drv = ElasticDriver(
+            model, optim.AdamWConfig(**TRAIN_OPT),
+            DataConfig(vocab_size=model.cfg.vocab_size, seq_len=shape["seq"],
+                       global_batch=shape["global_batch"], seed=0),
+            base_dir=os.path.join(ELASTIC_DIR, run["base"]),
+            bucket_bytes=shape["bucket_bytes"], accum=shape["accum"],
+            mode=run.get("mode", "handoff"), device=dev)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        armed = (install(FaultPlan([FaultSpec(plan[0], "crash",
+                                              hit=plan[1])]))
+                 if plan is not None else contextlib.nullcontext())
+        with armed:
+            res = drv.run(run["steps"],
+                          [ReconfigEvent(step=s, mesh_shape=m)
+                           for s, m in run["schedule"]],
+                          initial_shape=(2, 2), seed=SEED,
+                          resume=run.get("resume", False))
+        out[name] = dict(losses=res.losses, shapes=res.mesh_shapes,
+                         start=res.start_step,
+                         measurements=[m.to_dict()
+                                       for m in res.measurements],
+                         steady_step_s=res.steady_step_s,
+                         state_bytes=res.state_bytes,
+                         peak_memory_gib=torch.cuda.max_memory_allocated(
+                             dev) / 2 ** 30,
+                         launches={n: k.launches
+                                   for n, k in kernels.items()})
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def elastic_rank(rank: int, world: int, part: str) -> dict:
+    """One rank of the elastic phase's gloo job, on the card.  ``part``:
+    "main" (llama3.2-1b's widths at 1 layer: the uninterrupted run, the
+    3-handoff run and a drain cycle; then the reduced model's handoff and
+    drain), "kill" (the reduced model's 3-handoff run, this job SIGKILLed
+    at ``ELASTIC_KILL``) or "resume" (its relaunch)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels._build import all_kernels
+    from repro_torch.models.registry import (build_model, get_config,
+                                             reduced_config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = {k.name: k for k in all_kernels()}
+    rcfg = reduced_config(get_config(ELASTIC_ARCH))
+    reduced = dict(ELASTIC_REDUCED)
+    full_steps = ELASTIC["steps"]
+    steps = reduced["steps"]
+    if part in ("kill", "resume"):
+        rmodel = build_model(rcfg, device=dev, seed=None,
+                             dtype=torch.float32, remat=False)
+        point, hit, _ = ELASTIC_KILL
+        run = dict(schedule=ELASTIC_SCHEDULE, steps=steps, base="kill",
+                   resume=part == "resume")
+        return _driver_runs(torch, dev, rmodel, {"run": run}, reduced,
+                            kernels, plan=(point, hit)
+                            if part == "kill" else None)["run"]
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                              n_layers=ELASTIC["layers"])
+    model = build_model(cfg, device=dev, seed=None)
+    out = {"full": _driver_runs(torch, dev, model, {
+        "uninterrupted": dict(schedule=(), steps=full_steps,
+                              base="full_ref"),
+        "handoff": dict(schedule=ELASTIC_SCHEDULE, steps=full_steps,
+                        base="full_handoff"),
+        "drain": dict(schedule=ELASTIC_DRAIN, mode="drain",
+                      steps=ELASTIC_DRAIN[-1][0] + 1, base="full_drain")},
+        ELASTIC, kernels)}
+    out["peak_memory_gib"] = max(r["peak_memory_gib"]
+                                 for r in out["full"].values())
+    del model
+    torch.cuda.empty_cache()
+    rmodel = build_model(rcfg, device=dev, seed=None, dtype=torch.float32,
+                         remat=False)
+    out["reduced"] = _driver_runs(torch, dev, rmodel, {
+        "uninterrupted": dict(schedule=(), steps=steps, base="red_ref"),
+        "handoff": dict(schedule=ELASTIC_DRAIN, steps=steps,
+                        base="red_handoff"),
+        "drain": dict(schedule=ELASTIC_DRAIN, mode="drain", steps=steps,
+                      base="red_drain")}, reduced, kernels)
+    return out
+
+
+def _print_measurements(tag: str, run: dict) -> None:
+    for m in run["measurements"]:
+        print(f"    {tag} reconfig@{m['step']}: {tuple(m['from_shape'])}"
+              f"->{tuple(m['to_shape'])} [{m['mode']}] save "
+              f"{m['save_s']:.3f} s, restore {m['restore_s']:.3f} s, setup "
+              f"{m['setup_s']:.3f} s, first step {m['first_step_s']:.3f} s "
+              f"(steady {run['steady_step_s']:.3f}), {m['save_bytes']} B "
+              f"on disk, state {m['state_bytes']} B, verified "
+              f"{m['verified']}", flush=True)
+
+
+def phase_elastic(torch, dev, launches):
+    """The elastic handoff on the card: 4 gloo ranks run ``ElasticDriver``
+    (``elastic_rank``).  Gates: every handoff verified; the 3-handoff
+    run's losses (and the drain cycle's) bitwise the uninterrupted run's;
+    in every run of every rank, the resumed one too, K1 and K2 launch a
+    step as the config gives and K3 and K4 never; the job killed in a
+    handoff's commit window resumes from the previous commit and
+    continues bitwise.  Returns rank 0's launches a step at full width,
+    as counted."""
+    import dataclasses
+    import shutil
+    from repro_torch import ckpt
+    from repro_torch.models.registry import get_config, reduced_config
+    from repro_torch.parallel.launch import run_ranks
+    import gc
+    t_phase = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    free_gb = _disk_free_gb(ELASTIC_DIR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gib = torch.cuda.memory_reserved(dev) / 2 ** 30
+    card_free_gib = torch.cuda.mem_get_info(dev)[0] / 2 ** 30
+    print(f"  elastic: this process holds {parent_gib:.2f} GiB, the card "
+          f"has {card_free_gib:.2f} GiB free", flush=True)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    try:
+        t0 = time.perf_counter()
+        res = run_ranks(elastic_rank, ELASTIC_RANKS, args=("main",),
+                        deadline_s=ELASTIC_DEADLINE_S, timeout_s=600)
+        main_s = time.perf_counter() - t0
+        # the job killed by its own fault plan, then relaunched
+        t0 = time.perf_counter()
+        try:
+            run_ranks(elastic_rank, ELASTIC_RANKS, args=("kill",),
+                      deadline_s=ELASTIC_DEADLINE_S, timeout_s=600)
+        except RuntimeError as e:
+            if f"exited with code -{int(signal.SIGKILL)}" not in str(e):
+                raise
+            killed = str(e).splitlines()[0]
+        else:
+            raise AssertionError("elastic: the job ran through its fault "
+                                 "plan")
+        last = ckpt.latest_step(os.path.join(ELASTIC_DIR, "kill"))
+        resumed = run_ranks(elastic_rank, ELASTIC_RANKS, args=("resume",),
+                            deadline_s=ELASTIC_DEADLINE_S, timeout_s=600)
+        kill_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                              n_layers=ELASTIC["layers"])
+    # K1 and K2 launch a rank a step as the config gives, K3 and K4 never:
+    # at full width with remat, the reduced model without
+    want = {"full": expected_train_launches(cfg, ELASTIC["accum"]),
+            "reduced": expected_train_launches(
+                reduced_config(get_config(ELASTIC_ARCH)),
+                ELASTIC_REDUCED["accum"], remat=False)}
+
+    def check_launches(tag, r, run, want):
+        n = len(run["losses"])
+        if run["launches"] != {k: w * n for k, w in want.items()}:
+            raise AssertionError(f"elastic {tag}: rank {r} launched "
+                                 f"{run['launches']} in {n} steps, the "
+                                 f"config gives {want} a step")
+
+    for part in ("full", "reduced"):
+        for r in range(ELASTIC_RANKS):
+            runs = res[r][part]
+            ref = runs["uninterrupted"]["losses"]
+            for name, run in runs.items():
+                if run["losses"] != ref[:len(run["losses"])]:
+                    raise AssertionError(
+                        f"elastic {part} {name}: rank {r}'s losses "
+                        f"{run['losses']} are not the uninterrupted "
+                        f"run's {ref}")
+                if not all(m["verified"] for m in run["measurements"]):
+                    raise AssertionError(f"elastic {part} {name}: a "
+                                         f"handoff was not verified")
+                check_launches(f"{part} {name}", r, run, want[part])
+    full0 = res[0]["full"]
+    if [tuple(m["to_shape"]) for m in full0["handoff"]["measurements"]] \
+            != [m for _, m in ELASTIC_SCHEDULE]:
+        raise AssertionError("elastic: the handoffs did not run as "
+                             "scheduled")
+    kill_step = ELASTIC_KILL[2]
+    rref = res[0]["reduced"]["uninterrupted"]["losses"]
+    if last != kill_step or resumed[0]["start"] != kill_step:
+        raise AssertionError(f"elastic: the killed job left latest step "
+                             f"{last}, resumed at {resumed[0]['start']}; "
+                             f"want {kill_step}")
+    for r in range(ELASTIC_RANKS):
+        if resumed[r]["losses"] != rref[kill_step:]:
+            raise AssertionError(f"elastic: the resumed job's losses on "
+                                 f"rank {r} are not the uninterrupted "
+                                 f"run's")
+        check_launches("resumed", r, resumed[r], want["reduced"])
+    # rank 0's full-width uninterrupted run, as counted
+    ref0 = res[0]["full"]["uninterrupted"]
+    per_step = {k: n // len(ref0["losses"])
+                for k, n in ref0["launches"].items()}
+    launches.phases["elastic"] = {
+        k.name: sum(run["launches"][k.name] for rr in res
+                    for part in ("full", "reduced")
+                    for run in rr[part].values())
+        + sum(rr["launches"][k.name] for rr in resumed)
+        for k in launches.kernels}
+
+    for part in ("full", "reduced"):
+        for name, run in res[0][part].items():
+            print(f"  elastic {part} {name}: steady step "
+                  f"{run['steady_step_s']:.3f} s, losses "
+                  f"{[round(x, 6) for x in run['losses']]}", flush=True)
+            _print_measurements(f"{part} {name}", run)
+    _print_measurements("resumed", resumed[0])
+    print(f"  elastic: killed job: {killed}", flush=True)
+    print(f"  elastic: peak GiB a rank "
+          f"{[round(r['peak_memory_gib'], 2) for r in res]}", flush=True)
+
+    def cycle_s(m):
+        # the reconfiguration itself; the first step is printed apart
+        return m["save_s"] + m["setup_s"] + m["restore_s"]
+
+    cycles = {part: {name: [cycle_s(m) for m in run["measurements"]]
+                     for name, run in res[0][part].items()
+                     if run["measurements"]}
+              for part in ("full", "reduced")}
+    emit("elastic", arch=ELASTIC_ARCH, ranks=ELASTIC_RANKS, **ELASTIC,
+         schedule=ELASTIC_SCHEDULE, drain=ELASTIC_DRAIN,
+         reduced=ELASTIC_REDUCED, kill=ELASTIC_KILL, optimizer=TRAIN_OPT,
+         disk_free_gb=free_gb, seconds=time.perf_counter() - t_phase,
+         main_s=main_s, kill_and_resume_s=kill_s,
+         parent_reserved_gib=parent_gib, card_free_gib=card_free_gib,
+         peak_memory_gib=[r["peak_memory_gib"] for r in res],
+         launches_per_step_per_rank=per_step,
+         expected_launches_per_step_per_rank=want,
+         measurements={part: {name: run["measurements"]
+                              for name, run in res[0][part].items()}
+                       for part in ("full", "reduced")},
+         resumed_measurements=resumed[0]["measurements"],
+         steady_step_s={part: {name: run["steady_step_s"]
+                               for name, run in res[0][part].items()}
+                        for part in ("full", "reduced")},
+         cycle_s=cycles)
+    return per_step
+
+
 class Launches:
     """Per-phase launch counts of the kernels' wrappers."""
 
@@ -1867,6 +2347,8 @@ def run(torch) -> int:
         torch.cuda.empty_cache()
     phase_train(torch, dev, launches)
     phase_sync(torch, dev, launches)
+    ckpt_per_step = phase_ckpt(torch, dev, launches)
+    elastic_per_step = phase_elastic(torch, dev, launches)
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -1899,7 +2381,10 @@ def run(torch) -> int:
                    // TRAIN["steps"],
                "launches_per_sync_step_per_rank":
                    launches.phases["sync"][k.name]
-                   // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"])}
+                   // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"]),
+               "launches_per_ckpt_step": ckpt_per_step[k.name],
+               "launches_per_elastic_step_per_rank":
+                   elastic_per_step[k.name]}
         if k.name in ("flash_attention", "ssd", "mlstm"):   # tensor cores
             row.update({f: t[f] for f in ("tflops", "share_of_bound",
                                           "vs_library")})

@@ -13,9 +13,10 @@ caller.
 The job meets at a ``file://`` store in a fresh temporary directory, so
 concurrent jobs (a test suite under pytest-xdist) cannot collide the way
 fixed ``MASTER_PORT``s do.  gloo is given an explicit ``timeout``, far
-below its default of 30 minutes.  Every rank runs on the one host, so
-gloo's sockets bind the loopback interface unless ``GLOO_SOCKET_IFNAME``
-says otherwise.
+below its default of 30 minutes.  When a rank dies, by a SIGKILL or
+otherwise, the parent stops every other rank at once, so the job goes
+down with it.  Every rank runs on the one host, so gloo's sockets bind
+the loopback interface unless ``GLOO_SOCKET_IFNAME`` says otherwise.
 """
 from __future__ import annotations
 
@@ -62,6 +63,19 @@ def _stop(procs):
             p.join()
 
 
+def _killed(procs, wait_s: float = 2.0):
+    """(rank, exit code) of a rank a signal ended, waiting up to
+    ``wait_s`` for one; None when none was."""
+    t_end = time.monotonic() + wait_s
+    while True:
+        for r, p in enumerate(procs):
+            if p.exitcode is not None and p.exitcode < 0:
+                return r, p.exitcode
+        if time.monotonic() > t_end:
+            return None
+        time.sleep(0.05)
+
+
 def run_ranks(fn: Callable[..., Any], world_size: int, *,
               args: Sequence[Any] = (), deadline_s: float = 600.0,
               timeout_s: float = 90.0, threads: Optional[int] = None
@@ -101,8 +115,13 @@ def run_ranks(fn: Callable[..., Any], world_size: int, *,
                         f"{sorted(out)}")
                 continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {world_size} failed:\n"
-                                   f"{value}")
+                # a rank killed by a signal makes its peers fail on a
+                # broken connection: name the killed rank, the cause
+                killed = _killed(procs)
+                cause = (f"rank {killed[0]} of {world_size} exited with "
+                         f"code {killed[1]}; " if killed else "")
+                raise RuntimeError(f"{cause}rank {rank} of {world_size} "
+                                   f"failed:\n{value}")
             out[rank] = value
         for p in procs:
             p.join(max(1.0, deadline - time.monotonic()))

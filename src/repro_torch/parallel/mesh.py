@@ -15,7 +15,10 @@ coordinate grows with the rank).
 ``torch.distributed.new_group`` is collective over the whole job: every
 process calls it for every group, in the same order, member or not.  So
 every process of the job builds every grid, also grids it is not part of
-(``RankGrid.member`` is then false).  A grid of one rank makes no group,
+(``RankGrid.member`` is then false).  Beside its axes' groups a grid has
+one group of all its ranks (``RankGrid.group``), the job a checkpoint of
+the grid's state is saved and restored by.  A grid of one rank makes no
+group,
 and every collective over it is the identity: the reference's degenerate
 mesh (``repro/train.py:266-270``).
 """
@@ -82,6 +85,14 @@ class RankGrid:
                     if self.member and my_rank in members:
                         group = g
             self._axes[name] = Axis(name, shape[k], coords[k], group)
+        # all the grid's ranks (None on a grid of one rank, or for a
+        # process outside the grid)
+        self.group = None
+        if n > 1:
+            import torch.distributed as dist
+            g = dist.new_group(list(ranks))
+            if self.member:
+                self.group = g
 
     def axis(self, name: Optional[str]) -> Optional[Axis]:
         """This rank's view of axis ``name``; None for an axis the grid

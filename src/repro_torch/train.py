@@ -19,17 +19,18 @@ over the fast axis (``data``, host shared memory), the 1/F shard across
 the slow axis (``pod``), all-gather over the fast axis.
 
 ``Trainer`` runs the step over ``SyntheticCorpus`` batches with the
-reference's prefetch, heartbeat, straggler record and history; on a grid
-each rank runs its own ``Trainer``.  Checkpoint save, resume and recovery
-(and the failure hook that drives recovery) come with the sharded
-checkpoint, ROADMAP.md queue 1 item 7; until then ``TrainerConfig`` has
-none of their fields.
+reference's prefetch, heartbeat, straggler record and history, periodic
+checkpoints (sharded or gathered, async), and resume with retries and the
+corrupt-step fallback; on a grid each rank runs its own ``Trainer`` and
+the ranks save and restore together (``repro_torch.ckpt``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import time
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -512,13 +513,12 @@ def batch_to(batch, device) -> Tree:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The reference's fields for the loop and its gradient sync;
-    checkpointing's (``ckpt_every``, ``ckpt_dir``, ``async_ckpt``,
-    ``save_sharded``, the recovery knobs) come with ROADMAP.md queue 1
-    item 7."""
     n_steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
     log_every: int = 10
     accum: int = 1
+    async_ckpt: bool = True
     heartbeat_timeout_s: float = 60.0
     cross_pod_mode: str = "xla"
     bucket_bytes: int = bucketing.DEFAULT_BUCKET_BYTES
@@ -526,21 +526,34 @@ class TrainerConfig:
     overlap: bool = False
     slow_error_feedback: bool = False
     deterministic_reduce: bool = False
+    # sharded (per-rank shard + manifest) checkpoint format; False falls
+    # back to the legacy gathered per-leaf format (repro_torch.checkpoint)
+    save_sharded: bool = True
+    # recovery knobs (repro_torch.faults): bounded exponential-backoff
+    # retries for transient I/O during checkpoint save/restore, and
+    # whether a corrupt committed step at resume is quarantined on disk
+    # with fallback to the previous committed step (RecoveryReport
+    # returned in the run output) instead of raising
+    max_restore_retries: int = 0
+    fallback_on_corrupt: bool = False
 
 
 class Trainer:
     def __init__(self, model: nn.Module, ocfg: optim.AdamWConfig,
                  tcfg: TrainerConfig, data_cfg: DataConfig, *,
-                 device=None, grid: Optional[RankGrid] = None):
+                 device=None, grid: Optional[RankGrid] = None,
+                 failure_hook: Optional[Callable[[int], bool]] = None):
         """Trains ``model`` on ``device``, the card unless the caller
         passes ``device="cpu"``; on ``grid`` (every rank of it runs its own
-        ``Trainer``), with ``tcfg``'s gradient sync."""
+        ``Trainer``), with ``tcfg``'s gradient sync.  ``failure_hook(step)``
+        returning true raises an injected failure before that step."""
         self.device = resolve_device(device)
         self.model = model
         self.ocfg = ocfg
         self.tcfg = tcfg
         self.data_cfg = data_cfg
         self.grid = grid
+        self.failure_hook = failure_hook
         self.heartbeat = HeartbeatMonitor(
             timeout_s=tcfg.heartbeat_timeout_s)
         self.straggler = StragglerDetector()
@@ -553,24 +566,118 @@ class Trainer:
             slow_error_feedback=tcfg.slow_error_feedback,
             deterministic_reduce=tcfg.deterministic_reduce)
         self.history: list = []
+        # one record per committed checkpoint: its step, the seconds of
+        # the host copy (training waits for it) and of the whole save,
+        # until its writer was joined
+        self.checkpoints: list = []
+        self._open: Optional[dict] = None
 
-    def run(self, *, seed: Optional[int] = 0) -> Dict[str, Any]:
-        """Trains ``n_steps`` from the weights of ``seed`` (``None``: the
-        model's weights as they are).  Returns {"params", "opt_state",
-        "history", "stragglers", "recovery"}; "recovery" is None until
-        checkpoint recovery is ported.  On a grid every rank draws the
-        global batch (one corpus shard) and the step keeps its rows."""
-        tcfg, dev = self.tcfg, self.device
+    def _init_state(self, seed: Optional[int]):
+        tcfg = self.tcfg
         params, opt_state = init_train_state(
             self.model, self.ocfg, seed=seed, grid=self.grid,
             cross_pod_mode=tcfg.cross_pod_mode,
             bucket_bytes=tcfg.bucket_bytes,
             slow_error_feedback=tcfg.slow_error_feedback,
             deterministic_reduce=tcfg.deterministic_reduce)
+        self._layout = None
+        if tcfg.cross_pod_mode == "hier_bucketed_zero1":
+            self._layout = make_bucket_layout(
+                params, self.grid, bucket_bytes=tcfg.bucket_bytes,
+                deterministic=tcfg.deterministic_reduce,
+                family=self.model.cfg.family)
+        return params, opt_state
+
+    def _tree(self, params, opt_state):
+        from repro_torch.ckpt.state import state_tree
+        return state_tree(params, opt_state, family=self.model.cfg.family,
+                          grid=self.grid)
+
+    def _restore(self, params, opt_state):
+        """(start step, params, opt_state, recovery report) from the
+        latest committed checkpoint of ``ckpt_dir``, or the state as given
+        when there is none."""
+        from repro_torch import ckpt as ckpt_lib
+        from repro_torch.ckpt.state import restore_policy, state_from_tree
+        from repro_torch.faults.recovery import restore_with_fallback
+        from repro_torch.faults.retry import RetryPolicy
+        tcfg = self.tcfg
+        last = ckpt_lib.latest_step(tcfg.ckpt_dir)
+        if last is None:
+            return 0, params, opt_state, None
+        retry = RetryPolicy(max_retries=tcfg.max_restore_retries)
+        template = self._tree(params, opt_state)
+        policy = restore_policy(template)
+        recovery = None
+        if tcfg.fallback_on_corrupt:
+            start, tree, recovery = restore_with_fallback(
+                tcfg.ckpt_dir, template, policy=policy, layout=self._layout,
+                retry=retry, mesh=self.grid)
+        else:
+            start, tree = ckpt_lib.restore_auto(
+                ckpt_lib.step_dir(tcfg.ckpt_dir, last), template,
+                policy=policy, layout=self._layout, retry=retry,
+                mesh=self.grid)
+        del template
+        params, opt_state = state_from_tree(tree, order=list(params))
+        return start, params, opt_state, recovery
+
+    def _save(self, step: int, params, opt_state):
+        """Commit checkpoint ``step``; returns the writer thread (async) or
+        None."""
+        from repro_torch import checkpoint as legacy_ckpt
+        from repro_torch import ckpt as ckpt_lib
+        tcfg = self.tcfg
+        sdir = ckpt_lib.step_dir(tcfg.ckpt_dir, step)
+        tree = self._tree(params, opt_state)
+        t0 = time.perf_counter()
+        if tcfg.save_sharded:
+            pending = ckpt_lib.save_sharded(
+                sdir, step, tree, layout=self._layout, mesh=self.grid,
+                blocking=not tcfg.async_ckpt)
+        else:
+            pending = legacy_ckpt.save(sdir, step, tree,
+                                       blocking=not tcfg.async_ckpt,
+                                       mesh=self.grid)
+        self._open = {"step": step, "host_copy_s": time.perf_counter() - t0,
+                      "t0": t0}
+        return pending
+
+    def _join(self, pending) -> None:
+        """Join the writer of the last checkpoint (re-raising its failure)
+        and record its time."""
+        if self._open is None:
+            return
+        if pending is not None:
+            pending.join()
+        rec, self._open = self._open, None
+        rec["save_s"] = time.perf_counter() - rec.pop("t0")
+        self.checkpoints.append(rec)
+
+    def run(self, *, seed: Optional[int] = 0, resume: bool = True
+            ) -> Dict[str, Any]:
+        """Trains ``n_steps`` from the weights of ``seed`` (``None``: the
+        model's weights as they are), or, with ``resume``, from the latest
+        committed checkpoint of ``ckpt_dir`` when there is one (with the
+        retries and the corrupt-step fallback of the config).  Commits a
+        checkpoint after every ``ckpt_every``-th step.  Returns {"params",
+        "opt_state", "history", "stragglers", "recovery"}.  On a grid every
+        rank draws the global batch (one corpus shard) and the step keeps
+        its rows."""
+        tcfg, dev = self.tcfg, self.device
+        params, opt_state = self._init_state(seed)
+        start, recovery = 0, None
+        if resume:
+            start, params, opt_state, recovery = self._restore(params,
+                                                               opt_state)
         worker = self.grid.rank if self.grid is not None else 0
-        prefetch = Prefetcher(SyntheticCorpus(self.data_cfg))
+        prefetch = Prefetcher(SyntheticCorpus(self.data_cfg),
+                              start_step=start)
+        pending = None
         try:
-            for step in range(tcfg.n_steps):
+            for step in range(start, tcfg.n_steps):
+                if self.failure_hook and self.failure_hook(step):
+                    raise RuntimeError(f"injected failure at step {step}")
                 t0 = time.perf_counter()
                 _, batch = prefetch.next()
                 params, opt_state, metrics = self.step_fn(
@@ -586,9 +693,13 @@ class Trainer:
                         {"step": step,
                          "loss": float(metrics["loss"]),
                          "sec_per_step": dt})
+                if (step + 1) % tcfg.ckpt_every == 0:
+                    self._join(pending)
+                    pending = self._save(step + 1, params, opt_state)
         finally:
+            self._join(pending)
             prefetch.close()
         return {"params": params, "opt_state": opt_state,
                 "history": self.history,
                 "stragglers": self.straggler.summary(),
-                "recovery": None}
+                "recovery": recovery}

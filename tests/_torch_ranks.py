@@ -186,7 +186,7 @@ def _trainer(spec, grid):
                                cross_pod_mode="hier_bucketed_zero1")
     out = train.Trainer(model, optim.AdamWConfig(**spec["ocfg"]["a"]), tcfg,
                         DataConfig(**spec["data"]), device="cpu",
-                        grid=grid).run(seed=None)
+                        grid=grid).run(seed=None, resume=False)
     return {"loss": [h["loss"] for h in out["history"]],
             "digest": digest(out["params"])}
 
@@ -212,3 +212,295 @@ def fail_on_rank_one(rank, world):
 def sleep(rank, world):
     import time
     time.sleep(60)
+
+
+# ----------------------------------------------------------- checkpoints
+
+def files_digest(path):
+    """{file name: sha256 of its bytes} of a directory."""
+    import os
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _zero1(spec, grid, det, model=None):
+    """(model, params, state, layout) of the ZeRO-1 + error-feedback state
+    on ``grid`` from the bridged weights (the state as init gives it)."""
+    from repro_torch import optim, train
+    model = model or _model(spec, getattr(torch, spec["dtype"]))
+    ocfg = optim.AdamWConfig(**spec["ocfg"]["a"])
+    kw = dict(bucket_bytes=spec["bucket_bytes"], deterministic_reduce=det)
+    params, state = train.init_train_state(
+        model, ocfg, seed=None, grid=grid,
+        cross_pod_mode="hier_bucketed_zero1", slow_error_feedback=True,
+        **kw)
+    layout = train.make_bucket_layout(params, grid,
+                                      bucket_bytes=spec["bucket_bytes"],
+                                      deterministic=det)
+    return model, params, state, layout
+
+
+def _truth_state(truth, params, state, grid):
+    """This rank's boxes of the reference's saved (truth) state."""
+    from repro_torch import optim, train
+    fast, slow = grid.axis("data"), grid.axis("pod")
+    F, i = fast.size, fast.index
+
+    def box(a, parts, idx):
+        n = a.shape[0] // parts
+        return to_torch(a[idx * n:(idx + 1) * n].copy())
+
+    opt = optim.BucketedOptState(
+        step=int(truth["step"]),
+        **{k: tuple(box(a, F, i) for a in truth[k])
+           for k in ("mu", "nu", "master")})
+    res = tuple(box(a, grid.size, grid.rank) for a in truth["residuals"])
+    return params, train.EFState(opt, res)
+
+
+def _restore_on(spec, name, grid, model):
+    """The reference's checkpoint ``name`` restored on ``grid``: this
+    rank's boxes and the params' digest."""
+    from repro_torch import ckpt
+    from repro_torch.ckpt.state import (restore_policy, state_from_tree,
+                                        state_tree)
+    det = name.startswith("det")
+    _, params, state, layout = _zero1(spec, grid, det, model)
+    template = state_tree(params, state, grid=grid)
+    step, tree = ckpt.restore_auto(spec["dirs"][name], template,
+                                   policy=restore_policy(template),
+                                   layout=layout, mesh=grid)
+    params, state = state_from_tree(tree, list(params))
+    return {"step": step, "opt_step": state.opt.step,
+            "params": digest(params),
+            **{k: [t.numpy() for t in getattr(state.opt, k)]
+               for k in ("mu", "nu", "master")},
+            "residuals": [t.numpy() for t in state.residuals],
+            "fast_index": grid.axis("data").index}
+
+
+def _continuation(spec, grids, ef):
+    """Bitwise resharding: 6 steps on (2,2) against 3 on (2,2), a sharded
+    save, a restore on (4,1) and on (1,4) and 3 more steps on each."""
+    import os
+    from repro_torch import ckpt, optim, train
+    from repro_torch.ckpt.state import state_from_tree, state_tree
+    model = _model(spec, torch.float32)
+    ocfg = optim.AdamWConfig(**spec["ocfg"]["a"])
+    opts = dict(bucket_bytes=spec["bucket_bytes"],
+                deterministic_reduce=True, slow_error_feedback=ef)
+    batches = _batches(spec, 6)
+
+    def setup(grid):
+        params, state = train.init_train_state(
+            model, ocfg, seed=None, grid=grid,
+            cross_pod_mode="hier_bucketed_zero1", **opts)
+        step = train.make_train_step(
+            model, ocfg, accum=spec["accum"], device="cpu", grid=grid,
+            cross_pod_mode="hier_bucketed_zero1",
+            slow_compress_bits=8 if ef else 0, **opts)
+        layout = train.make_bucket_layout(
+            params, grid, bucket_bytes=spec["bucket_bytes"],
+            deterministic=True)
+        return params, state, step, layout
+
+    def steps(step, params, state, lo, hi):
+        losses = []
+        for b in batches[lo:hi]:
+            params, state, m = step(params, state, b)
+            losses.append(m["loss"].item())
+        return losses, params, state
+
+    params, state, step, layout = setup(grids[(2, 2)])
+    ref, ref_p, _ = steps(step, params, state, 0, 6)
+    params, state, step, layout = setup(grids[(2, 2)])
+    first, params, state = steps(step, params, state, 0, 3)
+    sdir = ckpt.step_dir(spec["base"] + ("_ef" if ef else ""), 3)
+    ckpt.save_sharded(sdir, 3, state_tree(params, state, grid=grids[(2, 2)]),
+                      layout=layout, mesh=grids[(2, 2)])
+    # no rank wrote a full bucket: each file of a flat state is 1/F of it
+    man = ckpt.read_manifest(sdir)
+    extents = {k: sorted({s.index[0][1] - s.index[0][0] for s in e.shards}
+                         | {e.shape[0]})
+               for k, e in man.leaves.items() if e.kind == "sharded"}
+    out = {"ref": ref, "first": first, "extents": extents,
+           "files": sorted(os.listdir(sdir))}
+    for shape in ((4, 1), (1, 4)):
+        params, state, step, layout2 = setup(grids[shape])
+        template = state_tree(params, state, grid=grids[shape])
+        rstep, tree = ckpt.restore_sharded(sdir, template, layout=layout2,
+                                           mesh=grids[shape])
+        params, state = state_from_tree(tree, list(params))
+        cont, params, _ = steps(step, params, state, 3, 6)
+        out[shape] = {"step": rstep, "cont": cont,
+                      "bitwise": digest(params) == digest(ref_p),
+                      "local": (state.opt if ef else state).master[0]
+                      .shape[0]}
+    return out
+
+
+def _grid_trainer(spec, grid):
+    """The Trainer on ``grid`` (zero1, async sharded saves every 2 steps):
+    an uninterrupted 4-step run, 2 steps and resume to 4, and the gathered
+    format; then a corrupt newest step and the fallback."""
+    import os
+    from repro_torch import ckpt, optim, train
+    from repro_torch.data import DataConfig
+
+    def run(n, ckpt_dir, resume, every=2, **kw):
+        model = _model(spec, torch.float32)
+        tcfg = train.TrainerConfig(
+            n_steps=n, log_every=1, accum=spec["accum"], ckpt_every=every,
+            ckpt_dir=ckpt_dir, cross_pod_mode="hier_bucketed_zero1",
+            bucket_bytes=spec["bucket_bytes"], **kw)
+        out = train.Trainer(model, optim.AdamWConfig(**spec["ocfg"]["a"]),
+                            tcfg, DataConfig(**spec["data"]), device="cpu",
+                            grid=grid).run(seed=None, resume=resume)
+        return ([h["loss"] for h in out["history"]], digest(out["params"]),
+                out["recovery"])
+
+    base = spec["trainer_base"]
+    ref = run(4, base + "/ref", False, every=100)
+    out = {"ref": ref[:2]}
+    for fmt, sharded in (("sharded", True), ("gathered", False)):
+        d = f"{base}/{fmt}"
+        run(2, d, False, save_sharded=sharded)
+        got = run(4, d, True, every=100)
+        out[fmt] = {"losses": got[0], "digest": got[1],
+                    "steps": ckpt.committed_steps(d)}
+    # corrupt step 4 of the sharded run on one rank's file only: every
+    # rank falls back to step 2, rank 0 alone quarantines
+    d = f"{base}/fallback"
+    run(4, d, False)
+    grid_group_barrier(grid)
+    sdir = ckpt.step_dir(d, 4)
+    if grid.rank == 0:
+        name = sorted(f for f in os.listdir(sdir) if ".s1." in f)[0]
+        with open(os.path.join(sdir, name), "r+b") as f:
+            f.seek(-4, os.SEEK_END)
+            tail = f.read(4)
+            f.seek(-4, os.SEEK_END)
+            f.write(bytes(b ^ 0xFF for b in tail))
+    grid_group_barrier(grid)
+    got = run(4, d, True, every=100, fallback_on_corrupt=True)
+    rep = got[2]
+    out["fallback"] = {"losses": got[0], "digest": got[1],
+                       "restored": rep.restored_step,
+                       "quarantined": [(q.step, q.quarantined_to)
+                                       for q in rep.quarantined],
+                       "steps": ckpt.committed_steps(d)}
+    return out
+
+
+def grid_group_barrier(grid):
+    import torch.distributed as dist
+    dist.barrier(group=grid.group)
+
+
+def ckpt_ranks(rank, world, spec):
+    """The checkpoint tests' gloo job: the reference's ZeRO-1 checkpoints
+    restored on (2,2), (4,1) and (1,4); the same state saved by the port
+    on (2,2); bitwise resharding; the Trainer on a grid."""
+    import numpy as np
+    from repro_torch import ckpt
+    from repro_torch.ckpt.state import state_tree
+    grids = {s: replica_grid(s, ("pod", "data"), rank, world)
+             for s in ((2, 2), (4, 1), (1, 4))}
+    model = _model(spec, getattr(torch, spec["dtype"]))
+    out = {"restore": {}, "saved": {}}
+    for name in spec["dirs"]:
+        for shape, grid in grids.items():
+            out["restore"][(name, shape)] = _restore_on(spec, name, grid,
+                                                        model)
+        truth = dict(np.load(spec["truth"][name]))
+        truth = {"step": truth["step"],
+                 **{k: [truth[f"{k}{b}"] for b in range(int(truth["nb"]))]
+                    for k in ("mu", "nu", "master", "residuals")}}
+        _, params, state, layout = _zero1(spec, grids[(2, 2)],
+                                          name.startswith("det"), model)
+        params, state = _truth_state(truth, params, state, grids[(2, 2)])
+        sdir = spec["port_dirs"][name]
+        ckpt.save_sharded(sdir, int(truth["step"]),
+                          state_tree(params, state, grid=grids[(2, 2)]),
+                          layout=layout, mesh=grids[(2, 2)])
+        if rank == 0:
+            out["saved"][name] = files_digest(sdir)
+    out["continuation"] = {ef: _continuation(spec, grids, ef)
+                           for ef in (False, True)}
+    out["trainer"] = _grid_trainer(spec, grids[(2, 2)])
+    return out
+
+
+def grid_save_ranks(rank, world, base, point, hit):
+    """A (2,2) grid saves step 10, then step 20 with ``point`` armed to
+    SIGKILL this process at arrival ``hit`` (``point`` None: no fault,
+    step ``hit`` instead)."""
+    import numpy as np
+    from repro_torch import ckpt
+    from repro_torch.checkpoint import Shard
+    from repro_torch.faults import FaultPlan, FaultSpec, install
+    grid = replica_grid((2, 2), ("pod", "data"), rank, world)
+    fast, slow = grid.axis("data"), grid.axis("pod")
+    full = np.arange(64, dtype=np.float32)
+    tree = {"w": Shard(torch.from_numpy(full[fast.index * 32:
+                                              (fast.index + 1) * 32].copy()),
+                       2, fast.index, slow.index == 0, ("data",)),
+            "b": np.float32(2.0)}
+    if point is None:
+        ckpt.save_sharded(ckpt.step_dir(base, hit), hit, tree, mesh=grid)
+        return ckpt.committed_steps(base)
+    ckpt.save_sharded(ckpt.step_dir(base, 10), 10, tree, mesh=grid)
+    with install(FaultPlan([FaultSpec(point, "crash", hit=hit)])):
+        ckpt.save_sharded(ckpt.step_dir(base, 20), 20, tree, mesh=grid)
+    return "SURVIVED"
+
+
+# ------------------------------------------------------- the elastic driver
+
+def driver_ranks(rank, world, spec):
+    """Every run of ``spec["runs"]`` through ``ElasticDriver`` in this
+    rank: losses, grids, measurements, the params' digest."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.elastic_driver import ElasticDriver, ReconfigEvent
+    from repro_torch.faults import install_from_env
+    install_from_env()          # a kill harness's plan, when it set one
+    model = _model(spec, torch.float32)
+    out = {}
+    for name, run in spec["runs"].items():
+        drv = ElasticDriver(
+            model, optim.AdamWConfig(**spec["ocfg"]["a"]),
+            DataConfig(**spec["data"]), base_dir=run["base"],
+            bucket_bytes=spec["bucket_bytes"], accum=spec["accum"],
+            mode=run.get("mode", "handoff"),
+            error_feedback=run.get("ef", False), device="cpu")
+        res = drv.run(spec["n_steps"],
+                      [ReconfigEvent(step=s, mesh_shape=tuple(m))
+                       for s, m in run["schedule"]],
+                      initial_shape=(2, 2), seed=None,
+                      resume=run.get("resume", False),
+                      final_save=run.get("final_save", False))
+        out[name] = {"losses": res.losses, "shapes": res.mesh_shapes,
+                     "start": res.start_step,
+                     "measurements": [m.to_dict() for m in res.measurements],
+                     "digest": digest(res.params),
+                     "state_bytes": res.state_bytes,
+                     "restored": (res.recovery.restored_step
+                                  if res.recovery is not None else None)}
+    return out
+
+
+def dump_spec(spec, path):
+    """A rank spec to a file, for a child process (pickle)."""
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump(spec, f)
+
+
+def load_spec(path):
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)

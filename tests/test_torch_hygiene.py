@@ -1,6 +1,7 @@
 """The port stands on its own: no module of src/repro_torch/ nor
-chip_smoke.py imports jax or the JAX package, and the entry points refuse
-to run on the CPU unless asked to."""
+chip_smoke.py imports jax, the JAX package or ml_dtypes (the card machine
+has none of them), and the entry points refuse to run on the CPU unless
+asked to."""
 import os
 import re
 import subprocess
@@ -17,7 +18,8 @@ from repro_torch.serve import BatchedServer, make_prefill_step, \
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[.\s,]|$)", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro|ml_dtypes)(?:[.\s,]|$)",
+    re.MULTILINE)
 
 
 def _port_sources():
@@ -44,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro')]\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -456,8 +456,9 @@ def test_trainer_history_matches_reference(tmp_path, jax_side):
     model = _port(jmodel.init(jax.random.key(0)), torch.float32)
     ours = train.Trainer(
         model, optim.AdamWConfig(**kw),
-        train.TrainerConfig(n_steps=6, log_every=2, accum=2),
-        data.DataConfig(**dcfg), device="cpu").run(seed=None)
+        train.TrainerConfig(n_steps=6, log_every=2, accum=2,
+                            ckpt_dir=str(tmp_path / "port")),
+        data.DataConfig(**dcfg), device="cpu").run(seed=None, resume=False)
     assert [h["step"] for h in ours["history"]] == [0, 2, 4]
     assert [h["step"] for h in ref["history"]] == [0, 2, 4]
     np.testing.assert_allclose([h["loss"] for h in ours["history"]],
