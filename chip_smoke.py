@@ -56,9 +56,15 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                K2 must launch as the config gives
                (``expected_train_launches``), the loss must fall, and each step's loss and grad norm must
                lie within ``TRAIN_LOSS_ATOL`` / ``TRAIN_GNORM_RTOL`` of the
-               plain path's.  Prints step ms, tokens/s, peak GiB, the
-               model-FLOPs share and a profile of one step (loss-and-grad and
-               AdamW apart).  Then one step of a 2-layer model at the same
+               plain path's.  AdamW updates the state in place: the
+               steps' peak of allocated memory must lie
+               ``TRAIN_PEAK_DROP_GIB`` below the functional update's
+               (``TRAIN_FUNCTIONAL_PEAK_GIB``), and the same steps with the
+               state cloned before each step must give the same losses and
+               every leaf of params, mu, nu and masters bit for bit
+               (``state_fingerprint``).  Prints step ms, tokens/s, peak
+               GiB, the model-FLOPs share and a profile of one step
+               (loss-and-grad and AdamW apart).  Then one step of a 2-layer model at the same
                widths on the card against the CPU: loss and grad norm
                (``CARD_VS_CPU_RTOL``) and every leaf's gradient by norm
                (``CARD_VS_CPU_LEAF_RTOL``).
@@ -96,12 +102,15 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                K4 never.  Prints the checkpoint's bytes, save and restore
                s and GB/s, and the launches a step as counted.
 7. elastic  -- the elastic handoff: 4 gloo ranks on the card
-               (``elastic_rank``) run ``ElasticDriver`` on llama3.2-1b's
-               widths at 1 layer (``ELASTIC``: on (4,1) each rank holds the
-               whole optimizer state, which at 2 layers ran the card out of
-               memory): the uninterrupted run, (2,2) -> (4,1)
-               -> (1,4) -> (2,2) at steps 2, 4 and 6 of 8
-               (``ELASTIC_SCHEDULE``) and a drain cycle; then the reduced
+               (``elastic_rank``) first run one step on (4,1) at the sync
+               phase's 2 layers (``ELASTIC_PROBE``: each rank holds the
+               whole optimizer state there, which ran the card out of
+               memory before the update went in place; it must complete,
+               and prints its peak GiB a rank), then ``ElasticDriver`` on
+               llama3.2-1b's widths at 1 layer (``ELASTIC``, for time): the
+               uninterrupted run, (2,2) -> (4,1) -> (1,4) -> (2,2) at steps
+               2, 4 and 6 of 8 (``ELASTIC_SCHEDULE``) and a drain cycle;
+               then the reduced
                model in f32 (``ELASTIC_REDUCED``): a handoff against a
                drain cycle at the same step, and the job SIGKILLed by its
                fault plan in the commit window of a handoff
@@ -116,6 +125,24 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                setup and first-step s and bytes; its ``cycle_s`` is save +
                setup + restore, the first step apart.
                Both phases write under ``chiprun_out/`` and delete it.
+8. cluster  -- the multi-tenant cluster runtime: ``ClusterRuntime``
+               co-schedules training jobs, each segment a
+               ``repro_torch.cluster.worker`` process whose gloo ranks
+               share this card.  Run A is the reference's contention
+               scenario (``CLUSTER_A``: ``launch/cluster.py``'s demo on a
+               2x4 pool, the reference worker's reduced model), then its
+               crash case (``CLUSTER_CRASH``); run B a 3-job trace at
+               llama3.2-1b's widths at 1 layer on a 2x2 pool
+               (``CLUSTER_B``).  Gates: the reference smoke's (a defrag of
+               j0 for j2 and at least 2 repacks, every job's steps, j2's
+               losses j0's first two bit for bit, every boundary's costs
+               above 0), the crash restarting j_a alone with equal losses,
+               run B's defrag of b0 for b2 with b0 bitwise b2 (the same
+               job run alone), and in every segment K1 and K2 launched as
+               the config gives, K3 and K4 never, on ``cuda``.  Prints the
+               repacks, every boundary's save, restore and setup s and
+               bytes, each segment's step s and peak GiB a rank.  It
+               writes under ``chiprun_out/`` and deletes it.
 
 Logits are held to the bound of tests/test_decode_consistency.py; where
 bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
@@ -124,7 +151,8 @@ bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
 path's prefill and serve phases, and before the train phase's steps (and
 in each rank before each step of the sync phase, before the ckpt phase's
-runs and in each rank before each elastic run), and read just after; the
+runs, in each rank before each elastic run and in each cluster segment's
+ranks), and read just after; the
 run fails if a kernel of a path was never launched on
 it, or if a prefill, a decode step or a training step launched other
 counts than its model's layers give.  The line before the
@@ -229,10 +257,15 @@ def device_kernels(torch, fn, n: int = 4) -> dict:
 def profiled_ms(torch, fn, n: int = 20, match: str = ""):
     """Device time of one call of ``fn``: the profiler's times of the
     kernels whose names hold ``match``, over ``n`` calls, summed, over
-    ``n`` (None if it saw no such kernel)."""
-    us = sum(ev.self_device_time_total for ev in device_events(torch, fn, n)
-             if match in ev.key)
-    return us / 1e3 / n if us else None
+    ``n`` (None if it saw no such kernel).  A window in which the profiler
+    saw none is taken again, up to 3 windows: on the H100 machine it has
+    dropped a whole window of K1's calls once."""
+    for _ in range(3):
+        us = sum(ev.self_device_time_total
+                 for ev in device_events(torch, fn, n) if match in ev.key)
+        if us:
+            return us / 1e3 / n
+    return None
 
 
 def check_close(torch, kernel, name, out, ref, dtype) -> float:
@@ -1127,6 +1160,13 @@ TRAIN_GNORM_RTOL = 2e-2
 CARD_VS_CPU_RTOL = 2e-3
 CARD_VS_CPU_LEAF_RTOL = 2e-2
 TRAIN_LEAF_GRAD_RTOL = 0.05
+# the peak of allocated memory over the train phase's steps with the
+# functional AdamW, which held the old and the new f32 state side by side
+# (H100 80GB HBM3, 700 W; PERF.md §6); the in-place update must come
+# in at least this far below it (one copy of the f32 master, mu and nu is
+# 3 x 4.94 GB)
+TRAIN_FUNCTIONAL_PEAK_GIB = 54.62
+TRAIN_PEAK_DROP_GIB = 10.0
 
 
 def expected_train_launches(cfg, accum: int, remat: bool = True) -> dict:
@@ -1227,6 +1267,34 @@ def plain_backward_ms(torch, dev, cfg, rows: int) -> dict:
                 torch, lambda: rmsnorm_backward_ref(x, w, x), iters=10)}
 
 
+def load_weights(torch, model, weights) -> None:
+    """Writes ``weights`` (tensors by parameter name) into the model's own
+    parameters."""
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(weights[n])
+
+
+def state_fingerprint(torch, params, opt_state) -> dict:
+    """Per tensor of a training state (params, AdamW's mu, nu and masters),
+    two sums of its bits as int64, computed on the card: a changed bit
+    changes them, so equal prints stand for a bitwise comparison without
+    the state's 17 GB leaving the card."""
+    tensors = {f"params.{n}": t for n, t in params.items()}
+    for part in ("mu", "nu", "master"):
+        tree = getattr(opt_state, part) or {}
+        tensors.update({f"{part}.{n}": t for n, t in tree.items()})
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach().contiguous().reshape(-1)
+        bits = t.view({2: torch.int16, 4: torch.int32}[t.element_size()])\
+            .to(torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out[name] = (int(bits.sum()), int((bits * weight).sum()))
+        del bits, weight
+    return out
+
+
 def run_steps(torch, dev, step, params, opt_state, batches):
     """``step`` over ``batches``: per step loss, grad norm and synchronised
     wall ms."""
@@ -1289,8 +1357,14 @@ def phase_train(torch, dev, launches):
                              f"path's")
     del g_kernel, g_plain
 
-    # the kernel path's steps, then the plain path's from the same weights
+    # the kernel path's steps, then the same steps with the state cloned
+    # before each step (the old and the new state side by side, as the
+    # functional update kept them), then the plain path's, every run from
+    # the same weights: the step updates the params, which share the
+    # model's storage, in place
     step = make_train_step(model, ocfg, accum=accum, device=dev)
+    # kept on the host, out of the peak the in-place run is held to
+    weights0 = {n: p.cpu() for n, p in params.items()}
     params, opt_state = init_train_state(model, ocfg, seed=None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1299,6 +1373,10 @@ def phase_train(torch, dev, launches):
                                                opt_state, batches)
     launches.read("train")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"  train: peak {peak_gib:.2f} GiB allocated over "
+          f"{steps} in-place steps (the functional update's: "
+          f"{TRAIN_FUNCTIONAL_PEAK_GIB} GiB)", flush=True)
+    in_place_print = state_fingerprint(torch, params, opt_state)
     # one more step, profiled, in two windows: loss-and-grad, AdamW
     b = batch_to(batches[0], dev)
     holder = {}
@@ -1312,7 +1390,43 @@ def phase_train(torch, dev, launches):
     if per_step != want:
         raise AssertionError(f"train: launches per step {per_step}, the "
                              f"config gives {want}")
+    if peak_gib > TRAIN_FUNCTIONAL_PEAK_GIB - TRAIN_PEAK_DROP_GIB:
+        raise AssertionError(f"train: the in-place steps peaked at "
+                             f"{peak_gib:.2f} GiB, not {TRAIN_PEAK_DROP_GIB}"
+                             f" GiB below {TRAIN_FUNCTIONAL_PEAK_GIB}")
+
+    def clone_step(params, opt_state, batch):
+        return step(*optim.clone_state((params, opt_state)), batch)
+
+    load_weights(torch, model, weights0)
+    params, opt_state = init_train_state(model, ocfg, seed=None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    clone_rows, params, opt_state = run_steps(torch, dev, clone_step,
+                                              params, opt_state, batches)
+    launches.read("train clone-based")
+    clone_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    clone_print = state_fingerprint(torch, params, opt_state)
+    del params, opt_state
+    if launches.phases["train clone-based"] != launches.phases["train"]:
+        raise AssertionError(f"train: the clone-based steps launched "
+                             f"{launches.phases['train clone-based']}, the "
+                             f"in-place ones {launches.phases['train']}")
+    clone_differs = [k for k in in_place_print
+                     if clone_print[k] != in_place_print[k]]
+    if ([r["loss"] for r in clone_rows] != [r["loss"] for r in kernel_rows]
+            or clone_differs):
+        raise AssertionError(f"train: the in-place steps are not bitwise "
+                             f"the clone-based ones: losses "
+                             f"{[r['loss'] for r in kernel_rows]} vs "
+                             f"{[r['loss'] for r in clone_rows]}, leaves "
+                             f"{clone_differs[:5]}")
+    print(f"  train: clone-based run bitwise the in-place one (losses and "
+          f"all {len(in_place_print)} leaves of params, mu, nu and "
+          f"masters); its peak {clone_peak_gib:.2f} GiB", flush=True)
     model.use_kernels = False
+    load_weights(torch, model, weights0)
+    del weights0
     params, opt_state = init_train_state(model, ocfg, seed=None)
     before = launches.snapshot()
     plain_rows, params, opt_state = run_steps(torch, dev, step, params,
@@ -1354,7 +1468,9 @@ def phase_train(torch, dev, launches):
          steps_plain=plain_rows, median_step_s=step_s,
          plain_median_step_s=plain_s, steps_per_s=1 / step_s,
          tokens_per_s=tokens / step_s, plain_tokens_per_s=tokens / plain_s,
-         peak_memory_gib=peak_gib, model_flops_per_step=flops,
+         peak_memory_gib=peak_gib, clone_based_peak_memory_gib=clone_peak_gib,
+         functional_peak_memory_gib_pr17=TRAIN_FUNCTIONAL_PEAK_GIB,
+         model_flops_per_step=flops,
          model_flops_share=flops / step_s / PEAK_FLOPS["bfloat16"],
          flops_note="6*N*tokens + 3x causal attention; remat's recompute "
                     "left out",
@@ -1824,13 +1940,16 @@ ELASTIC_ARCH = "llama3.2-1b"
 ELASTIC_RANKS = 4
 # llama3.2-1b's widths at 1 layer and half the sync phase's sequence: four
 # ranks share the card, and on the (4,1) grid the fast axis has one rank,
-# so each holds the whole f32 optimizer state (and the step's new one
-# beside it).  At the sync phase's 2 layers that took ≈ 19.5 GiB a rank
-# and ran the card out of memory, at sequence 1024 and at 512 (PERF.md);
-# (2,2) -> (4,1) -> (1,4) -> (2,2) at steps 2, 4 and 6 of 8, as in
+# so each holds the whole f32 optimizer state.  At the sync phase's 2
+# layers, with the functional AdamW holding the step's new state beside
+# the old, that took ≈ 19.5 GiB a rank and ran the card out of memory
+# (PERF.md); the in-place update lets it fit, which the probe shows with
+# one step on (4,1) at 2 layers, while the schedule stays at 1 layer for
+# time.  (2,2) -> (4,1) -> (1,4) -> (2,2) at steps 2, 4 and 6 of 8, as in
 # tests/test_fault_matrix.py
 ELASTIC = dict(layers=1, seq=512, global_batch=8, accum=2, steps=8,
                bucket_bytes=32 << 20)
+ELASTIC_PROBE = dict(layers=2, shape=(4, 1), steps=1)
 ELASTIC_SCHEDULE = ((2, (4, 1)), (4, (1, 4)), (6, (2, 2)))
 # the reduced model in f32: a handoff against a drain cycle at one step,
 # and the kill-and-resume, whose relaunch replays 6 steps and 2 handoffs
@@ -2018,8 +2137,8 @@ def _driver_runs(torch, dev, model, runs: dict, shape: dict, kernels,
             res = drv.run(run["steps"],
                           [ReconfigEvent(step=s, mesh_shape=m)
                            for s, m in run["schedule"]],
-                          initial_shape=(2, 2), seed=SEED,
-                          resume=run.get("resume", False))
+                          initial_shape=run.get("initial", (2, 2)),
+                          seed=SEED, resume=run.get("resume", False))
         out[name] = dict(losses=res.losses, shapes=res.mesh_shapes,
                          start=res.start_step,
                          measurements=[m.to_dict()
@@ -2063,17 +2182,27 @@ def elastic_rank(rank: int, world: int, part: str) -> dict:
         return _driver_runs(torch, dev, rmodel, {"run": run}, reduced,
                             kernels, plan=(point, hit)
                             if part == "kill" else None)["run"]
+    # the probe: one step on (4,1), where each rank holds the whole f32
+    # optimizer state, at the sync phase's 2 layers
+    pcfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                               n_layers=ELASTIC_PROBE["layers"])
+    model = build_model(pcfg, device=dev, seed=None)
+    out = {"probe": _driver_runs(torch, dev, model, {"probe": dict(
+        schedule=(), steps=ELASTIC_PROBE["steps"], base="probe",
+        initial=ELASTIC_PROBE["shape"])}, ELASTIC, kernels)["probe"]}
+    del model
+    torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
                               n_layers=ELASTIC["layers"])
     model = build_model(cfg, device=dev, seed=None)
-    out = {"full": _driver_runs(torch, dev, model, {
+    out["full"] = _driver_runs(torch, dev, model, {
         "uninterrupted": dict(schedule=(), steps=full_steps,
                               base="full_ref"),
         "handoff": dict(schedule=ELASTIC_SCHEDULE, steps=full_steps,
                         base="full_handoff"),
         "drain": dict(schedule=ELASTIC_DRAIN, mode="drain",
                       steps=ELASTIC_DRAIN[-1][0] + 1, base="full_drain")},
-        ELASTIC, kernels)}
+        ELASTIC, kernels)
     out["peak_memory_gib"] = max(r["peak_memory_gib"]
                                  for r in out["full"].values())
     del model
@@ -2166,6 +2295,16 @@ def phase_elastic(torch, dev, launches):
                                  f"{run['launches']} in {n} steps, the "
                                  f"config gives {want} a step")
 
+    pcfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                               n_layers=ELASTIC_PROBE["layers"])
+    want["probe"] = expected_train_launches(pcfg, ELASTIC["accum"])
+    for r in range(ELASTIC_RANKS):
+        check_launches("probe", r, res[r]["probe"], want["probe"])
+    probe_gib = [r["probe"]["peak_memory_gib"] for r in res]
+    print(f"  elastic probe: one hier_bucketed_zero1 step on "
+          f"{ELASTIC_PROBE['shape']} at {ELASTIC_PROBE['layers']} layers "
+          f"completed, loss {res[0]['probe']['losses'][0]:.6f}; peak GiB a "
+          f"rank {[round(g, 2) for g in probe_gib]}", flush=True)
     for part in ("full", "reduced"):
         for r in range(ELASTIC_RANKS):
             runs = res[r][part]
@@ -2205,6 +2344,7 @@ def phase_elastic(torch, dev, launches):
         k.name: sum(run["launches"][k.name] for rr in res
                     for part in ("full", "reduced")
                     for run in rr[part].values())
+        + sum(rr["probe"]["launches"][k.name] for rr in res)
         + sum(rr["launches"][k.name] for rr in resumed)
         for k in launches.kernels}
 
@@ -2234,6 +2374,8 @@ def phase_elastic(torch, dev, launches):
          main_s=main_s, kill_and_resume_s=kill_s,
          parent_reserved_gib=parent_gib, card_free_gib=card_free_gib,
          peak_memory_gib=[r["peak_memory_gib"] for r in res],
+         probe=dict(ELASTIC_PROBE, peak_memory_gib=probe_gib,
+                    loss=res[0]["probe"]["losses"]),
          launches_per_step_per_rank=per_step,
          expected_launches_per_step_per_rank=want,
          measurements={part: {name: run["measurements"]
@@ -2245,6 +2387,253 @@ def phase_elastic(torch, dev, launches):
                         for part in ("full", "reduced")},
          cycle_s=cycles)
     return per_step
+
+
+# the cluster phase: the multi-tenant runtime co-schedules training jobs,
+# each segment a worker process with gloo ranks of its own on this card.
+# Run A is the reference's contention scenario (launch/cluster.py's demo:
+# a 2x4 pool, backfill of depth 8, tenant beta's quota 6, the reference
+# worker's reduced model), j0 at 18 steps in segments of 6 (a defrag of j0
+# for j2 at step 6, a rebalance at step 12: j0's middle segment, a restore,
+# 6 steps and a save, outlasts j2's 2 steps, which admit the rebalance),
+# and beside it its crash case (a 1x4 pool, j_a SIGKILLed at its first
+# step).  Run B is a trace of 3 jobs at
+# llama3.2-1b's published widths at 1 layer on a 2x2 pool (at most 4 ranks
+# live), the elastic phase's data: b0 and b1 fill the pool (2,1) each; b1
+# leaves after 1 step, and the tier-0 b2, pinned to one host, finds the
+# free devices split across hosts, so b0 is repacked (1,2) at its step-2
+# boundary to admit it; b2 is b0's job run alone (the same seed and width),
+# 8 steps in all.
+CLUSTER_DIR = os.path.join(REPO, "chiprun_out", "cluster_phase")
+CLUSTER_A = dict(pool=(2, 4), steps=18, segment_steps=6, policy="backfill",
+                 depth=8, quotas={"beta": 6})
+CLUSTER_CRASH = dict(pool=(1, 4), point="driver.first_step")
+CLUSTER_B = dict(pool=(2, 2), layers=1, seq=512, global_batch=8,
+                 bucket_bytes=32 << 20,
+                 jobs=(("b0", 2, 4, 2, "acme", "normal", None),
+                       ("b1", 2, 1, 1, "beta", "normal", None),
+                       ("b2", 2, 3, 3, "beta", "high", "b1")))
+CLUSTER_TIMEOUT_S = 600
+
+
+def cluster_b_specs():
+    from repro_torch.cluster import ClusterJobSpec
+    from repro_torch.core.job import TIER_HIGH, TIER_NORMAL
+    b = CLUSTER_B
+    return [ClusterJobSpec(jid, size=size, n_steps=n, segment_steps=seg,
+                           tenant=tenant, after=after,
+                           priority_tier=TIER_HIGH if tier == "high"
+                           else TIER_NORMAL,
+                           n_layers=b["layers"], seq_len=b["seq"],
+                           global_batch=b["global_batch"],
+                           bucket_bytes=b["bucket_bytes"])
+            for jid, size, n, seg, tenant, tier, after in b["jobs"]]
+
+
+def cluster_run(name: str, specs, pool, **kw) -> tuple:
+    """One ``ClusterRuntime`` run on the card under ``CLUSTER_DIR/name``:
+    (its result, every segment's result file by job)."""
+    import glob
+    from repro_torch.cluster import ClusterRuntime, DevicePool
+    base = os.path.join(CLUSTER_DIR, name)
+    rt = ClusterRuntime(specs, pool=DevicePool(*pool), base_dir=base,
+                        timeout_s=CLUSTER_TIMEOUT_S, **kw)
+    res = rt.run()
+    segs = {}
+    for path in sorted(glob.glob(os.path.join(base, "*",
+                                              "seg*.result.json"))):
+        with open(path) as f:
+            d = json.load(f)
+        segs.setdefault(d["job_id"], []).append(d)
+    return res, segs
+
+
+def check_cluster_run(tag, res, segs, specs, want) -> dict:
+    """The runtime's invariants on a run, as
+    tests/test_cluster_runtime.py holds them: every job's steps, every
+    measurement's costs, every segment on the card with K1 and K2 launched
+    as the config gives (``want``, a step) and K3 and K4 never.  Returns
+    rank 0's launches summed over the run's segments."""
+    total = {k: 0 for k in want}
+    for spec in specs:
+        got = res.jobs[spec.job_id]
+        if len(got.losses) != spec.n_steps or not all(
+                math.isfinite(x) for x in got.losses):
+            raise AssertionError(f"cluster {tag}: {spec.job_id} has "
+                                 f"losses {got.losses}, want "
+                                 f"{spec.n_steps}")
+        done = segs.get(spec.job_id, [])
+        if len(done) != len(got.segments):
+            raise AssertionError(f"cluster {tag}: {spec.job_id} wrote "
+                                 f"{len(done)} results for "
+                                 f"{len(got.segments)} segments")
+        for d in done:
+            n = len(d["losses"])
+            if d["device"] != "cuda" or d["kernel_launches"] != {
+                    k: w * n for k, w in want.items()}:
+                raise AssertionError(
+                    f"cluster {tag}: {spec.job_id} segment at step "
+                    f"{d['start_step']} ran on {d['device']} with "
+                    f"launches {d['kernel_launches']} in {n} steps; the "
+                    f"config gives {want} a step")
+            for k in total:
+                total[k] += d["kernel_launches"][k]
+    for m in res.measurements:
+        if not (m["save_s"] > 0 and m["restore_s"] > 0
+                and m["state_bytes"] > 0 and m["save_bytes"] > 0):
+            raise AssertionError(f"cluster {tag}: measurement {m}")
+    return total
+
+
+def _print_cluster(tag, res, segs) -> None:
+    for r in res.repacks:
+        print(f"  cluster {tag}: repack {r.job_id} [{r.reason}] at step "
+              f"{r.at_step} {r.from_shape}->{r.to_shape}"
+              + (f" (admits {r.requested_by})" if r.requested_by else ""),
+              flush=True)
+    for m in res.measurements:
+        print(f"  cluster {tag}: boundary {m['job_id']}@{m['step']} "
+              f"{tuple(m['from_shape'])}->{tuple(m['to_shape'])} "
+              f"repack={m['repack']}: save {m['save_s']:.3f} s, restore "
+              f"{m['restore_s']:.3f} s, setup {m['setup_s']:.3f} s, first "
+              f"step {m['first_step_s']:.3f} s, {m['save_bytes']} B on "
+              f"disk, state {m['state_bytes']} B", flush=True)
+    for jid in sorted(segs):
+        for d in segs[jid]:
+            print(f"  cluster {tag}: {jid} steps {d['start_step']}-"
+                  f"{d['end_step'] - 1} on {tuple(d['shape'])}: first step "
+                  f"{d['first_step_s']:.3f} s, steady "
+                  f"{d['steady_step_s']:.3f} s, peak GiB a rank "
+                  f"{[round(g, 2) for g in d['peak_memory_gib']]}, losses "
+                  f"{[round(x, 6) for x in d['losses']]}", flush=True)
+
+
+def phase_cluster(torch, dev, launches):
+    """The multi-tenant cluster runtime on the card (``CLUSTER_A``,
+    ``CLUSTER_CRASH``, ``CLUSTER_B``): jobs co-scheduled by
+    ``ClusterRuntime``, each segment a ``repro_torch.cluster.worker``
+    process whose gloo ranks share this card.  Gates: as
+    ``test_cluster_smoke_multidevice`` and
+    ``test_cluster_fault_restarts_only_target_multidevice`` hold them, and
+    run B's repack and its repacked job bitwise its run alone; every
+    segment on the card with K1 and K2 as the config gives.  Returns rank
+    0's launches over the phase's segments."""
+    import dataclasses
+    import gc
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.faults.plan import FaultPlan, FaultSpec
+    from repro_torch.cluster import ClusterJobSpec
+    from repro_torch.launch.cluster import demo_specs
+    from repro_torch.models.registry import get_config, reduced_config
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = CLUSTER_A
+    wall = {}
+
+    def timed(name, *args, **kw):
+        t0 = time.perf_counter()
+        out = cluster_run(name, *args, **kw)
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        # run A and the crash case side by side, each with its own pool
+        # and runtime (their ranks together use a few GiB of the card)
+        specs_a = demo_specs(a["steps"], a["segment_steps"])
+        specs_c = [ClusterJobSpec("j_a", size=2, n_steps=2),
+                   ClusterJobSpec("j_b", size=2, n_steps=2)]
+        with ThreadPoolExecutor(2) as ex:
+            fut_a = ex.submit(timed, "a", specs_a, a["pool"],
+                              scheduler=Scheduler(a["policy"],
+                                                  depth=a["depth"],
+                                                  quotas=a["quotas"]))
+            fut_c = ex.submit(timed, "crash", specs_c,
+                              CLUSTER_CRASH["pool"],
+                              fault_plans={"j_a": FaultPlan([FaultSpec(
+                                  CLUSTER_CRASH["point"], "crash",
+                                  hit=1)])})
+            res_a, segs_a = fut_a.result()
+            res_c, segs_c = fut_c.result()
+        specs_b = cluster_b_specs()
+        res_b, segs_b = timed("b", specs_b, CLUSTER_B["pool"],
+                              scheduler=Scheduler("backfill", depth=8))
+    finally:
+        shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+
+    reduced = expected_train_launches(
+        reduced_config(get_config("llama3.2-1b")), 1, remat=False)
+    full1 = expected_train_launches(dataclasses.replace(
+        get_config("llama3.2-1b"), n_layers=CLUSTER_B["layers"]), 1,
+        remat=False)
+    counts = [check_cluster_run("a", res_a, segs_a, specs_a, reduced),
+              check_cluster_run("crash", res_c, segs_c, specs_c, reduced),
+              check_cluster_run("b", res_b, segs_b, specs_b, full1)]
+    # run A: the reference smoke's gates
+    reasons = [r.reason for r in res_a.repacks]
+    if len(reasons) < 2 or "defrag" not in reasons:
+        raise AssertionError(f"cluster a: repacks {reasons}")
+    defrag = res_a.repacks[reasons.index("defrag")]
+    if (defrag.job_id, defrag.requested_by) != ("j0", "j2"):
+        raise AssertionError(f"cluster a: the defrag moved "
+                             f"{defrag.job_id} for {defrag.requested_by}")
+    j0 = res_a.jobs["j0"].losses
+    if res_a.jobs["j2"].losses != j0[:2]:
+        raise AssertionError(f"cluster a: j2's losses "
+                             f"{res_a.jobs['j2'].losses} are not j0's "
+                             f"first two {j0[:2]}")
+    if not res_a.measurements:
+        raise AssertionError("cluster a: no boundary was measured")
+    # the crash case
+    if (res_c.jobs["j_a"].restarts, res_c.jobs["j_b"].restarts) != (1, 0) \
+            or res_c.jobs["j_a"].losses != res_c.jobs["j_b"].losses:
+        raise AssertionError(
+            f"cluster crash: restarts {res_c.jobs['j_a'].restarts}/"
+            f"{res_c.jobs['j_b'].restarts}, losses "
+            f"{res_c.jobs['j_a'].losses} vs {res_c.jobs['j_b'].losses}")
+    # run B: a scheduler repack, and the repacked job continues bitwise
+    # against the same job run alone (b2)
+    b0 = res_b.jobs["b0"]
+    if not any(r.job_id == "b0" and r.reason == "defrag"
+               and r.requested_by == "b2" for r in res_b.repacks):
+        raise AssertionError(f"cluster b: repacks {res_b.repacks}")
+    if res_b.jobs["b2"].losses != b0.losses[:3] or len(set(b0.shapes)) < 2:
+        raise AssertionError(f"cluster b: b0 {b0.losses} on {b0.shapes}, "
+                             f"b2 alone {res_b.jobs['b2'].losses}")
+    total = {k: sum(c[k] for c in counts) for k in reduced}
+    launches.phases["cluster"] = total
+    for tag, res, segs in (("a", res_a, segs_a), ("crash", res_c, segs_c),
+                           ("b", res_b, segs_b)):
+        _print_cluster(tag, res, segs)
+    seconds = time.perf_counter() - t_phase
+    print(f"  cluster: run A {wall['a']:.1f} s and beside it the crash case "
+          f"{wall['crash']:.1f} s, run B {wall['b']:.1f} s; phase "
+          f"{seconds:.1f} s", flush=True)
+
+    def summary(res, segs):
+        return dict(
+            repacks=[r.to_dict() for r in res.repacks],
+            measurements=res.measurements,
+            jobs={jid: dict(losses=o.losses,
+                            shapes=[list(x) for x in o.shapes],
+                            restarts=o.restarts)
+                  for jid, o in res.jobs.items()},
+            segments={jid: [{k: d[k] for k in (
+                "start_step", "end_step", "shape", "first_step_s",
+                "steady_step_s", "peak_memory_gib", "kernel_launches")}
+                for d in ds] for jid, ds in segs.items()},
+            wall_s=res.wall_s)
+
+    emit("cluster", run_a=dict(CLUSTER_A, **summary(res_a, segs_a)),
+         crash=dict(CLUSTER_CRASH, **summary(res_c, segs_c)),
+         run_b=dict(CLUSTER_B, **summary(res_b, segs_b)),
+         expected_launches_per_step_per_rank={"reduced": reduced,
+                                              "run_b": full1},
+         launches_rank0=total, wall_s=wall, seconds=seconds)
+    return total
 
 
 class Launches:
@@ -2349,6 +2738,7 @@ def run(torch) -> int:
     phase_sync(torch, dev, launches)
     ckpt_per_step = phase_ckpt(torch, dev, launches)
     elastic_per_step = phase_elastic(torch, dev, launches)
+    cluster_launches = phase_cluster(torch, dev, launches)
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -2384,7 +2774,8 @@ def run(torch) -> int:
                    // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"]),
                "launches_per_ckpt_step": ckpt_per_step[k.name],
                "launches_per_elastic_step_per_rank":
-                   elastic_per_step[k.name]}
+                   elastic_per_step[k.name],
+               "launches_cluster_rank0": cluster_launches[k.name]}
         if k.name in ("flash_attention", "ssd", "mlstm"):   # tensor cores
             row.update({f: t[f] for f in ("tflops", "share_of_bound",
                                           "vs_library")})

@@ -206,19 +206,12 @@ def flatten_to_buckets(layout: BucketLayout,
                  for b in range(layout.n_buckets))
 
 
-def unflatten_from_buckets(layout: BucketLayout,
-                           buckets: Sequence[torch.Tensor], *,
-                           dtype: Optional[torch.dtype] = None) -> Tree:
-    """The port's tensors by name from flat buckets.
-
-    ``dtype=None`` restores each tensor's storage dtype from the layout;
-    passing a dtype (``torch.float32`` for gradients) overrides it; where
-    the dtype is f32 the tensors are views of the buckets.  Each bucket is
-    cut with one ``split``, whose backward is one concatenation, so
-    differentiating through this function costs one buffer a bucket.
-    """
+def _bucket_pieces(layout: BucketLayout, buckets: Sequence[torch.Tensor]):
+    """(name, slot, view of the bucket) of every tensor in ``buckets``:
+    each bucket is cut with one ``split``, whose backward is one
+    concatenation, so differentiating through it costs one buffer a
+    bucket."""
     assert len(buckets) == layout.n_buckets
-    out: Tree = {}
     for b, bucket in enumerate(buckets):
         slots = [s for s in layout.slots if s.bucket == b]
         names, sizes = [], []
@@ -230,9 +223,29 @@ def unflatten_from_buckets(layout: BucketLayout,
         pad = bucket.shape[0] - sum(sizes)
         pieces = torch.split(bucket, sizes + [pad] if pad else sizes)
         for (name, slot), piece in zip(names, pieces):
-            out[name] = piece.view(slot.part_shape).to(
-                slot.dtype if dtype is None else dtype)
-    return out
+            yield name, slot, piece.view(slot.part_shape)
+
+
+def unflatten_from_buckets(layout: BucketLayout,
+                           buckets: Sequence[torch.Tensor], *,
+                           dtype: Optional[torch.dtype] = None) -> Tree:
+    """The port's tensors by name from flat buckets.
+
+    ``dtype=None`` restores each tensor's storage dtype from the layout;
+    passing a dtype (``torch.float32`` for gradients) overrides it; where
+    the dtype is f32 the tensors are views of the buckets.
+    """
+    return {name: piece.to(slot.dtype if dtype is None else dtype)
+            for name, slot, piece in _bucket_pieces(layout, buckets)}
+
+
+@torch.no_grad()
+def unflatten_into(layout: BucketLayout, buckets: Sequence[torch.Tensor],
+                   params: Tree) -> None:
+    """:func:`unflatten_from_buckets` written into ``params``' own
+    storage, each piece cast to the param's dtype as ``to`` casts it."""
+    for name, _slot, piece in _bucket_pieces(layout, buckets):
+        params[name].copy_(piece)
 
 
 # ---------------------------------------------------------------------------

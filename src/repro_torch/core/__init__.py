@@ -1,3 +1,5 @@
-"""The port's share of ``repro/core`` so far: ``leaves.TpuLeaf``, which
-the elastic remesh plans over (ROADMAP.md queue 1 item 11 ports the rest
-of the control plane)."""
+"""The port's control plane (counterpart of ``repro/core``): MIG profiles,
+leaves and GPU state, jobs, the Flex-MIG placement policy, the scheduler,
+the JCT model and the traces.  The simulator side (``simulator``,
+``modes``, ``metrics``, ``registry``, ``executor``, ``aggregation``) is
+still to port (ROADMAP.md queue 1 item 11)."""

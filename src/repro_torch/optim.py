@@ -3,9 +3,12 @@
 
 Parameters, gradients and moments are dicts of tensors by parameter name
 (``dict(model.named_parameters())``'s keys).  The update runs in f32 under
-``torch.no_grad()``, leaf by leaf, in the reference's order of operations;
-it is functional as the reference's: ``apply`` returns new tensors and
-modifies none it was given.  The schedule and the bias corrections are
+``torch.no_grad()``, leaf by leaf, in the reference's order of operations.
+It updates the params, moments and masters in their own storage and
+returns the same tensors: the port's counterpart of the reference's
+donated step (``donate_argnums=(0, 1)``), so the old and the new state
+never stand side by side.  A caller that wants a state after a step clones
+it first (``clone_state``).  The schedule and the bias corrections are
 scalars of the step count, which stays on the host (a Python int), so
 they are computed there in f32 arithmetic (numpy float32) and a step on
 the card waits for nothing.  ``BucketedOptState``, ``init_bucketed`` and
@@ -105,6 +108,22 @@ def init_bucketed(cfg: AdamWConfig, params: Tree, layout
         nu=tuple(torch.zeros_like(b) for b in master), master=master)
 
 
+def clone_state(tree):
+    """A copy of a state (tensors in dicts, tuples and named tuples, such
+    as ``(params, opt_state)``) that a later in-place step leaves as it
+    is: the counterpart of keeping a buffer the reference's step would
+    donate."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_state(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_state(v) for v in tree)
+    return tree
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     leaves = [g.float().square().sum() for g in tree.values()]
     return torch.stack(leaves).sum().sqrt()
@@ -117,18 +136,21 @@ def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
     return torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
 
-def _adamw_update(cfg: AdamWConfig, g, m, v, base, *, lr: float, b1c: float,
-                  b2c: float, scale: torch.Tensor):
-    """One elementwise AdamW update -> (m, v, new_w), all f32: the single
-    source of the update math, in the reference's order of operations."""
+def _adamw_update(cfg: AdamWConfig, g, m, v, w, *, lr: float, b1c: float,
+                  b2c: float, scale: torch.Tensor) -> torch.Tensor:
+    """One elementwise AdamW update, all f32: the single source of the
+    update math, in the reference's order of operations.  ``m``, ``v``
+    and ``w`` are updated in their own storage, each op the unfused one of
+    ``m = b1 * m + (1 - b1) * g`` and so on, so every rounding is the
+    functional form's.  Returns ``w``."""
     g = g.float() * scale
-    m = cfg.b1 * m + (1 - cfg.b1) * g
-    v = cfg.b2 * v + (1 - cfg.b2) * g.square()
+    m.mul_(cfg.b1)
+    m.add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2)
+    v.add_((1 - cfg.b2) * g.square())
     mh = m / b1c
     vh = v / b2c
-    new_w = base - lr * (mh / (vh.sqrt() + cfg.eps)
-                         + cfg.weight_decay * base)
-    return m, v, new_w
+    return w.sub_(lr * (mh / (vh.sqrt() + cfg.eps) + cfg.weight_decay * w))
 
 
 def _step_scalars(cfg: AdamWConfig, completed: int):
@@ -146,34 +168,34 @@ def _step_scalars(cfg: AdamWConfig, completed: int):
 def apply(cfg: AdamWConfig, params: Tree, grads: Tree, state: OptState, *,
           gnorm: Optional[torch.Tensor] = None
           ) -> Tuple[Tree, OptState, Dict[str, object]]:
-    """One AdamW step.  Returns (new_params, new_state, {"lr",
-    "grad_norm"}).  ``gnorm`` lets callers that already hold the global
-    norm (the bucketed sync modes, from reduce-scattered shards) supply
-    the clipping norm instead of re-deriving it from ``grads``."""
+    """One AdamW step, in place.  Returns (params, new_state, {"lr",
+    "grad_norm"}): ``params`` and the state's tensors are the ones given,
+    updated; only ``step`` is new.  ``gnorm`` lets callers that already
+    hold the global norm (the bucketed sync modes, from reduce-scattered
+    shards) supply the clipping norm instead of re-deriving it from
+    ``grads``."""
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = _clip_scale(cfg, gnorm)
-    step = state.step + 1
     lr, b1c, b2c = _step_scalars(cfg, state.step)
-    new_params, mu, nu, master = {}, {}, {}, {}
     for n, p in params.items():
-        base = state.master[n] if state.master is not None else p.float()
-        mu[n], nu[n], new_w = _adamw_update(
-            cfg, grads[n], state.mu[n], state.nu[n], base, lr=lr, b1c=b1c,
-            b2c=b2c, scale=scale)
-        # a copy even for f32 leaves: params never alias the masters
-        new_params[n] = new_w.to(p.dtype, copy=True)
-        master[n] = new_w
-    new_state = OptState(step, mu, nu,
-                         master if state.master is not None else None)
-    return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
+        # without masters the f32 base is a temporary (for an f32 leaf,
+        # a copy: ``float()`` of it would be the param itself)
+        w = (state.master[n] if state.master is not None
+             else p.to(torch.float32, copy=True))
+        _adamw_update(cfg, grads[n], state.mu[n], state.nu[n], w, lr=lr,
+                      b1c=b1c, b2c=b2c, scale=scale)
+        # the param keeps its own storage: it never aliases the master
+        p.copy_(w)
+    return params, state._replace(step=state.step + 1), {
+        "lr": lr, "grad_norm": gnorm}
 
 
 @torch.no_grad()
 def apply_flat(cfg: AdamWConfig, grads, state: BucketedOptState, *,
                gnorm: torch.Tensor
                ) -> Tuple[BucketedOptState, Dict[str, object]]:
-    """Shard-resident AdamW over flat f32 bucket (shards).
+    """Shard-resident AdamW over flat f32 bucket (shards), in place.
 
     ``grads`` is a tuple of flat f32 buffers aligned element for element
     with ``state``'s buckets: on a rank grid, each rank's reduce-scattered
@@ -181,18 +203,13 @@ def apply_flat(cfg: AdamWConfig, grads, state: BucketedOptState, *,
     norm (``bucketing.shard_global_norm``); clipping and the schedule are
     then those of :func:`apply`, and every other op is elementwise, so the
     update is bitwise identical to the replicated path.  Returns
-    (new_state, metrics); the caller re-gathers params from
-    ``new_state.master``.
+    (new_state, metrics): the state's tensors are the ones given, updated;
+    the caller re-gathers params from ``new_state.master``.
     """
     scale = _clip_scale(cfg, gnorm)
     lr, b1c, b2c = _step_scalars(cfg, state.step)
-    mu, nu, master = [], [], []
     for g, m, v, w in zip(grads, state.mu, state.nu, state.master):
-        m, v, new_w = _adamw_update(cfg, g, m, v, w, lr=lr, b1c=b1c,
-                                    b2c=b2c, scale=scale)
-        mu.append(m)
-        nu.append(v)
-        master.append(new_w)
-    new_state = BucketedOptState(state.step + 1, tuple(mu), tuple(nu),
-                                 tuple(master))
-    return new_state, {"lr": lr, "grad_norm": gnorm}
+        _adamw_update(cfg, g, m, v, w, lr=lr, b1c=b1c, b2c=b2c,
+                      scale=scale)
+    return state._replace(step=state.step + 1), {"lr": lr,
+                                                  "grad_norm": gnorm}

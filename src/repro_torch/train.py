@@ -3,10 +3,12 @@
 
 ``make_train_step`` builds step(params, opt_state, batch) -> (params,
 opt_state, metrics) with microbatch gradient accumulation over an f32 view
-of the parameters, then AdamW (``optim.apply``).  Parameters are a dict of
-tensors by name (``init_train_state``); the model is called on them through
-``torch.func.functional_call``, so its own ``nn.Parameter``s are left as
-they are.  Per-layer remat is the model's (``TransformerLM.remat``).
+of the parameters, then AdamW (``optim.apply``), which updates the state
+in place as the reference's donated step does.  Parameters are a dict of
+tensors by name (``init_train_state``) that share the model's storage, so
+a step moves the model's own weights too; the model is called on them
+through ``torch.func.functional_call``.  Per-layer remat is the model's
+(``TransformerLM.remat``).
 
 Every ``cross_pod_mode`` of the reference is here (``CROSS_POD_MODES``).
 On a rank grid (``parallel.mesh.RankGrid``; each rank a process of a gloo
@@ -372,7 +374,9 @@ def _make_manual_sync_step(model: nn.Module, ocfg: optim.AdamWConfig, *,
             ocfg, shards, opt_state, gnorm=gnorm))
         new_pb = bucketing.all_gather_buckets(new_state.master,
                                               fast_axis=sg.fast)
-        params = bucketing.unflatten_from_buckets(layout, new_pb)
+        # the gathered masters go into the params' own storage
+        bucketing.unflatten_into(layout, new_pb, params)
+        del new_pb
         if ef:
             new_state = EFState(new_state, new_res)
         return params, new_state, {"loss": mean_loss(loss), **om}
@@ -475,7 +479,8 @@ def init_train_state(model: nn.Module, ocfg: optim.AdamWConfig, *,
     ``seed`` (on the model's device; every rank draws the same), or kept
     as they are with ``seed=None`` (weights loaded with
     ``load_state_dict``, e.g. bridged from the reference), as a dict of
-    tensors by name that shares the model's storage; and the optimizer
+    tensors by name that shares the model's storage (the step updates it
+    in place); and the optimizer
     state the mode's step takes: AdamW's, this rank's
     ``BucketedOptState`` shards over the step's own layout for
     ``hier_bucketed_zero1``, wrapped in an :class:`EFState` for

@@ -288,13 +288,15 @@ def _continuation(spec, grids, ef):
     import os
     from repro_torch import ckpt, optim, train
     from repro_torch.ckpt.state import state_from_tree, state_tree
-    model = _model(spec, torch.float32)
     ocfg = optim.AdamWConfig(**spec["ocfg"]["a"])
     opts = dict(bucket_bytes=spec["bucket_bytes"],
                 deterministic_reduce=True, slow_error_feedback=ef)
     batches = _batches(spec, 6)
 
     def setup(grid):
+        # a model of its own from the bridged weights: the step updates
+        # the params, which share the model's storage, in place
+        model = _model(spec, torch.float32)
         params, state = train.init_train_state(
             model, ocfg, seed=None, grid=grid,
             cross_pod_mode="hier_bucketed_zero1", **opts)
@@ -468,9 +470,11 @@ def driver_ranks(rank, world, spec):
     from repro_torch.elastic_driver import ElasticDriver, ReconfigEvent
     from repro_torch.faults import install_from_env
     install_from_env()          # a kill harness's plan, when it set one
-    model = _model(spec, torch.float32)
     out = {}
     for name, run in spec["runs"].items():
+        # each run from the bridged weights: a run's in-place steps update
+        # the model's own params
+        model = _model(spec, torch.float32)
         drv = ElasticDriver(
             model, optim.AdamWConfig(**spec["ocfg"]["a"]),
             DataConfig(**spec["data"]), base_dir=run["base"],
@@ -491,6 +495,25 @@ def driver_ranks(rank, world, spec):
                      "restored": (res.recovery.restored_step
                                   if res.recovery is not None else None)}
     return out
+
+
+# ------------------------------------------------------ the cluster worker
+
+def bridged_segment_ranks(rank, world, spec, weights):
+    """The cluster worker's segment (``repro_torch.cluster.worker``, its
+    model, optimizer, data and driver) from ``weights`` bridged from the
+    reference's init, where the worker draws them from the spec's seed:
+    losses and the params' digest."""
+    import torch
+    from repro_torch.cluster.worker import segment_config, segment_driver
+    from repro_torch.models.registry import build_model
+    model = build_model(segment_config(spec), device="cpu", seed=None,
+                        remat=False)
+    model.load_state_dict(weights, strict=True)
+    drv = segment_driver(spec, model, torch.device("cpu"))
+    res = drv.run(spec["run_to"], (), initial_shape=tuple(spec["shape"]),
+                  seed=None, final_save=False)
+    return {"losses": res.losses, "digest": digest(res.params)}
 
 
 def dump_spec(spec, path):

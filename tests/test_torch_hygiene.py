@@ -39,6 +39,30 @@ def test_sources_import_no_jax_nor_repro():
         assert not hits, f"{path} imports {hits}"
 
 
+CONTROL_PLANE = sorted(
+    [os.path.join("core", n) for n in ("__init__.py", "profiles.py",
+                                       "leaves.py", "job.py", "policy.py",
+                                       "scheduler.py", "jct_model.py",
+                                       "traces.py")]
+    + [os.path.join("cluster", n) for n in ("__init__.py", "pool.py",
+                                            "manager.py", "worker.py",
+                                            "runtime.py")]
+    + [os.path.join("launch", "cluster.py")])
+
+
+@pytest.mark.parametrize("rel", CONTROL_PLANE)
+def test_control_plane_sources_import_no_jax_nor_repro(rel):
+    """The control plane and the cluster runtime are among the sources
+    the walk above reads, and each imports only the port."""
+    path = os.path.join(PORT, rel)
+    assert path in set(_port_sources())
+    with open(path) as f:
+        src = f.read()
+    assert not FORBIDDEN.findall(src), rel
+    assert not re.search(r"^\s*(?:import|from)\s+repro\b(?!_torch)", src,
+                         re.MULTILINE), rel
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, pkgutil, importlib, repro_torch\n"

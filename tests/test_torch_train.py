@@ -238,9 +238,13 @@ def test_masters_do_not_alias_params():
         assert state.master[k].data_ptr() != tparams[k].data_ptr(), k
         assert state2.master[k].data_ptr() != new[k].data_ptr(), k
         assert state.mu[k].data_ptr() != state.nu[k].data_ptr(), k
-    # apply modifies nothing it was given
-    assert torch.equal(tparams["n"], torch.ones(16))
-    assert state.step == 0 and float(state.mu["n"].abs().sum()) == 0.0
+    # apply updates what it was given in place (the reference's donated
+    # step) and counts the step in the new state only
+    assert new is tparams and state2.mu is state.mu
+    ptrs = {k: v.data_ptr() for k, v in tparams.items()}
+    assert {k: v.data_ptr() for k, v in new.items()} == ptrs
+    assert state.step == 0 and state2.step == 1
+    assert float(state.mu["n"].abs().sum()) > 0.0
 
 
 # ---------------------------------------------------- loss-and-grad, step
