@@ -143,6 +143,31 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                repacks, every boundary's save, restore and setup s and
                bytes, each segment's step s and peak GiB a rank.  It
                writes under ``chiprun_out/`` and deletes it.
+9. replay   -- the cluster simulator priced by the card (host code, no
+               kernel): ``ReconfigCostModel.from_measurements`` of the
+               elastic phase's three full-width handoffs (beside it, for
+               information, the model of cluster run B's boundaries);
+               every Table-1 workload's uncapped handoff against the
+               1-job drain the simulator charges; the fig7 and fig8 trace
+               categories (``REPLAY_TRACES``) at seeds 0-2 replayed by
+               ``simulate`` under Dynamic-MIG with drains, with handoffs
+               at the card's cost model, and under Flex-MIG; fig7 seed 0
+               under seeded host failures with each cost model; a size-4
+               job placed by Flex-MIG and launched by ``JobExecutor``
+               through the MIG-aware registry.  Gates: the median handoff
+               at or below the drain; every job of every replay finished;
+               Flex-MIG reconfigures nothing; the summed handoff charge
+               below the summed drain charge; the mean makespan delta of
+               handoff over drain at least ``REPLAY_MIN_DELTA``; a replay
+               run twice equal; the failure replays' failures equal and
+               the handoff's restart charge at most the drain's; the
+               launch spans both GPUs with SHM transports and fails
+               without the MIG-aware registry.  Prints the cost models,
+               every replay's makespan, mean JCT and wait, drains or
+               handoffs and their charge, the makespan delta, Flex-MIG over
+               drained Dynamic-MIG (``metrics.summarize``), the schedule
+               fig7 seed 0 would ask the elastic driver for, and the
+               phase's seconds.
 
 Logits are held to the bound of tests/test_decode_consistency.py; where
 bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
@@ -2237,7 +2262,9 @@ def phase_elastic(torch, dev, launches):
     step as the config gives and K3 and K4 never; the job killed in a
     handoff's commit window resumes from the previous commit and
     continues bitwise.  Returns rank 0's launches a step at full width,
-    as counted."""
+    as counted, and rank 0's full-width measurements by run (the
+    handoffs of ``ELASTIC_SCHEDULE`` under "handoff", the drain cycle
+    under "drain"), which the replay phase reads."""
     import dataclasses
     import shutil
     from repro_torch import ckpt
@@ -2386,7 +2413,8 @@ def phase_elastic(torch, dev, launches):
                                for name, run in res[0][part].items()}
                         for part in ("full", "reduced")},
          cycle_s=cycles)
-    return per_step
+    return per_step, {name: run["measurements"]
+                      for name, run in res[0]["full"].items()}
 
 
 # the cluster phase: the multi-tenant runtime co-schedules training jobs,
@@ -2517,7 +2545,8 @@ def phase_cluster(torch, dev, launches):
     ``test_cluster_fault_restarts_only_target_multidevice`` hold them, and
     run B's repack and its repacked job bitwise its run alone; every
     segment on the card with K1 and K2 as the config gives.  Returns rank
-    0's launches over the phase's segments."""
+    0's launches over the phase's segments and run B's boundary
+    measurements (``ReconfigCostModel.from_measurements``-shaped)."""
     import dataclasses
     import gc
     import shutil
@@ -2633,7 +2662,248 @@ def phase_cluster(torch, dev, launches):
          expected_launches_per_step_per_rank={"reduced": reduced,
                                               "run_b": full1},
          launches_rank0=total, wall_s=wall, seconds=seconds)
-    return total
+    return total, res_b.measurements
+
+
+# the replay phase: the simulator replays the paper's trace categories
+# (benchmarks/elastic_bench.py's two: fig7, train jobs under FIFO; fig8,
+# train and serve jobs under backfill) under Dynamic-MIG with drains, with
+# handoffs priced by the cost model calibrated from the elastic phase's
+# full-width handoffs, and under Flex-MIG.  Host code only, as in the
+# reference; the card's part is the measurements.
+REPLAY_TRACES = (("fig7", "philly", "balanced", "train", "fifo"),
+                 ("fig8", "helios_earth", "balanced", "mixed", "backfill"))
+REPLAY_SEEDS = (0, 1, 2)
+REPLAY_TRACE_KW = dict(double=True, max_size=4)
+# the reference bench's full-run gate on the mean makespan delta of
+# handoff over drain, as it stands
+REPLAY_MIN_DELTA = -0.01
+# tests/test_sim_failures.py's failure model
+REPLAY_FAILURES = dict(mtbf_s=3 * 3600.0, ckpt_interval_s=600.0)
+
+
+def _cost_model_row(cm) -> dict:
+    return dict(save_bps=cm.save_bps, restore_bps=cm.restore_bps,
+                recompile_s=cm.recompile_s, coord_s=cm.coord_s)
+
+
+def _replay_row(r) -> dict:
+    return dict(makespan=r.makespan, avg_jct=r.avg_jct,
+                avg_wait=r.avg_wait, n_reconfigs=r.n_reconfigs,
+                n_drains=r.n_drains, n_handoffs=r.n_handoffs,
+                drain_cost_s=r.drain_cost_s,
+                handoff_cost_s=r.handoff_cost_s, n_events=r.n_events)
+
+
+def phase_replay(elastic: dict, cluster_measurements) -> None:
+    """The simulator priced by the card: ``ReconfigCostModel`` calibrated
+    from the elastic phase's full-width handoffs (``elastic``: its
+    measurements by run), the handoff against the drain the simulator
+    charges, the replays of ``REPLAY_TRACES``, a failure replay, and the
+    executor's launch through the MIG-aware registry.  Gates: the median
+    Table-1 workload's handoff at or below the 1-job drain; every job of
+    every replay finished; Flex-MIG reconfigures nothing; the summed
+    handoff charge below the summed drain charge; the mean makespan delta
+    at least ``REPLAY_MIN_DELTA``; a replay run twice equal; the failure
+    replay's failures the same under both cost models, the handoff's
+    restart charge at most the drain's; the launch forms with SHM
+    transports MIG-aware and fails without."""
+    import dataclasses
+    from repro_torch.core import metrics
+    from repro_torch.core.executor import JobExecutor
+    from repro_torch.core.jct_model import (WORKLOADS, ReconfigCostModel,
+                                            ckpt_state_bytes)
+    from repro_torch.core.job import Job
+    from repro_torch.core.leaves import Cluster
+    from repro_torch.core.modes import (CKPT_LOAD_S, CKPT_SAVE_S,
+                                        POD_CHURN_S, RECONFIGURE_S, FlexMIG)
+    from repro_torch.core.registry import (DuplicateGpuError,
+                                           TopologyMismatchError)
+    from repro_torch.core.simulator import FailureModel, simulate
+    from repro_torch.core.traces import TraceCategory, generate_trace
+    from repro_torch.elastic_driver import schedule_from_sim
+    t_phase = time.perf_counter()
+
+    # 1. calibrate from the card's handoffs
+    handoffs = elastic["handoff"]
+    cm = ReconfigCostModel.from_measurements(handoffs)
+    cm_b = ReconfigCostModel.from_measurements(cluster_measurements)
+    print(f"  replay: cost model from the elastic phase's "
+          f"{len(handoffs)} handoffs (llama3.2-1b's widths, "
+          f"{ELASTIC['layers']} layer, {handoffs[0]['state_bytes']} B of "
+          f"state): save_bps {cm.save_bps:.6g}, restore_bps "
+          f"{cm.restore_bps:.6g}, recompile_s {cm.recompile_s:.6g}",
+          flush=True)
+    print(f"  replay: from cluster run B's {len(cluster_measurements)} "
+          f"boundaries (information only): save_bps {cm_b.save_bps:.6g}, "
+          f"restore_bps {cm_b.restore_bps:.6g}, recompile_s "
+          f"{cm_b.recompile_s:.6g}", flush=True)
+
+    # 2. the handoff against the 1-job drain the simulator charges
+    drain_ref = RECONFIGURE_S + CKPT_SAVE_S + CKPT_LOAD_S + POD_CHURN_S
+    uncapped = {w: cm.handoff_s(ckpt_state_bytes(w)) for w in WORKLOADS}
+    median = float(np.median(list(uncapped.values())))
+    below = float(np.mean([u <= drain_ref + 1e-9
+                           for u in uncapped.values()]))
+    if not median <= drain_ref + 1e-9:
+        raise AssertionError(f"replay: the median Table-1 handoff "
+                             f"{median} s exceeds the 1-job drain "
+                             f"{drain_ref} s")
+    drain_cycles = [m["save_s"] + m["restore_s"] for m in elastic["drain"]]
+    print(f"  replay: uncapped handoff of the {len(uncapped)} Table-1 "
+          f"workloads: median {median:.4f} s, {min(uncapped.values()):.4f}"
+          f"-{max(uncapped.values()):.4f} s, {below:.2%} at or below the "
+          f"1-job drain {drain_ref} s; the elastic phase's drain cycle "
+          f"(save + restore) {[round(c, 3) for c in drain_cycles]} s "
+          f"against the simulator's {CKPT_SAVE_S + CKPT_LOAD_S} s",
+          flush=True)
+
+    # 3. the replays
+    def trace(src, size_dist, mix, seed):
+        return generate_trace(TraceCategory(src, size_dist, mix),
+                              seed=seed, **REPLAY_TRACE_KW)
+
+    rows, comparisons, by_label = [], [], {}
+    for label, src, size_dist, mix, policy in REPLAY_TRACES:
+        for seed in REPLAY_SEEDS:
+            jobs = trace(src, size_dist, mix, seed)
+            ids = {j.job_id for j in jobs}
+            t0 = time.perf_counter()
+            runs = {"dm_drain": simulate(jobs, "DM", policy=policy),
+                    "dm_handoff": simulate(jobs, "DM", policy=policy,
+                                           reconfig_mode="handoff",
+                                           reconfig_cost=cm),
+                    "fm": simulate(jobs, "FM", policy=policy)}
+            sim_s = time.perf_counter() - t0
+            for name, r in runs.items():
+                if r.n_jobs != len(jobs) or set(r.jct_by_job) != ids:
+                    raise AssertionError(
+                        f"replay {label} seed {seed} {name}: "
+                        f"{r.n_jobs} of {len(jobs)} jobs finished")
+            if runs["fm"].n_reconfigs:
+                raise AssertionError(f"replay {label} seed {seed}: FM "
+                                     f"reconfigured")
+            drain, hand = runs["dm_drain"], runs["dm_handoff"]
+            delta = ((drain.makespan - hand.makespan)
+                     / max(drain.makespan, 1e-9))
+            cmp = metrics.ModeComparison.of(runs["fm"], drain)
+            comparisons.append(cmp)
+            by_label.setdefault(label, []).append(cmp)
+            row = dict(label=label, source=src, size_dist=size_dist,
+                       mix=mix, policy=policy, seed=seed, n_jobs=len(jobs),
+                       makespan_delta_frac=delta,
+                       fm_over_dm_drain=dataclasses.asdict(cmp),
+                       sim_s=sim_s,
+                       **{k: _replay_row(r) for k, r in runs.items()})
+            rows.append(row)
+            print(f"  replay {label} seed {seed} ({len(jobs)} jobs, "
+                  f"{policy}): "
+                  + "; ".join(
+                      f"{k} makespan {r.makespan:.1f} s, avg_jct "
+                      f"{r.avg_jct:.1f}, avg_wait {r.avg_wait:.1f}"
+                      for k, r in runs.items())
+                  + f"; drains {drain.n_drains} charged "
+                  f"{drain.drain_cost_s:.1f} s, handoffs "
+                  f"{hand.n_handoffs} charged {hand.handoff_cost_s:.3f} s;"
+                  f" makespan delta {delta:+.4%}; FM/DM-drain makespan "
+                  f"{cmp.makespan_ratio:.4f} ({sim_s * 1e3:.0f} ms)",
+                  flush=True)
+    drain_total = sum(r["dm_drain"]["drain_cost_s"] for r in rows)
+    handoff_total = sum(r["dm_handoff"]["handoff_cost_s"] for r in rows)
+    delta_mean = float(np.mean([r["makespan_delta_frac"] for r in rows]))
+    if not handoff_total < drain_total:
+        raise AssertionError(f"replay: handoffs charged {handoff_total} "
+                             f"s, drains {drain_total} s")
+    if not delta_mean >= REPLAY_MIN_DELTA:
+        raise AssertionError(f"replay: mean makespan delta {delta_mean} "
+                             f"below {REPLAY_MIN_DELTA}")
+    summary = metrics.summarize(comparisons)
+    print(f"  replay: charged {drain_total:.1f} s drained against "
+          f"{handoff_total:.3f} s handed off; mean makespan delta "
+          f"{delta_mean:+.4%}; FM over DM-drain {summary}", flush=True)
+    for label, cmps in by_label.items():
+        print(f"  replay {label}: FM over DM-drain "
+              f"{metrics.summarize(cmps)}", flush=True)
+    # one replay, run twice
+    label, src, size_dist, mix, policy = REPLAY_TRACES[0]
+    jobs = trace(src, size_dist, mix, REPLAY_SEEDS[0])
+    again = [simulate(jobs, "DM", policy=policy, reconfig_mode="handoff",
+                      reconfig_cost=cm) for _ in range(2)]
+    if len({repr((r.jct_by_job, r.makespan, r.n_events))
+            for r in again}) != 1:
+        raise AssertionError("replay: one replay run twice differs")
+
+    # 4. failures: the simulator's repack path, under both cost models
+    fmodel = FailureModel(**REPLAY_FAILURES)
+    fail = {name: simulate(jobs, "DM", policy=policy, failure_model=fmodel,
+                           reconfig_cost=model)
+            for name, model in (("drain", ReconfigCostModel(mode="drain")),
+                                ("handoff", cm))}
+    fd, fh = fail["drain"], fail["handoff"]
+    if fd.n_failures != fh.n_failures or not (
+            fh.failure_restart_cost_s <= fd.failure_restart_cost_s + 1e-9):
+        raise AssertionError(
+            f"replay: failures {fd.n_failures} / {fh.n_failures}, restart "
+            f"charge {fd.failure_restart_cost_s} / "
+            f"{fh.failure_restart_cost_s} s (drain / handoff)")
+    for name, r in fail.items():
+        print(f"  replay {label} seed {REPLAY_SEEDS[0]} with failures "
+              f"(mtbf {fmodel.mtbf_s:.0f} s, {name}): {r.n_failures} "
+              f"failures, {r.n_recoveries} recoveries, restart charge "
+              f"{r.failure_restart_cost_s:.3f} s, lost work "
+              f"{r.failure_lost_work_s:.1f} s, goodput {r.goodput:.4f}, "
+              f"makespan {r.makespan:.1f} s", flush=True)
+
+    # 5. a size-4 job placed by FM, launched through the registry
+    cluster = Cluster(n_hosts=1, gpus_per_host=2)
+    fm = FlexMIG()
+    fm.setup(cluster)
+    job = Job("job-1", "bert-base", "train", 4, 32, 1200.0)
+    placement = fm.try_place(job, cluster)
+    ex = JobExecutor()
+    launched = ex.launch(job, placement, mig_aware=True)
+    gpus = sorted({i.gpu_id for i in placement.instances})
+    if gpus != [0, 1] or set(launched.transports.values()) != {"SHM"}:
+        raise AssertionError(f"replay: the launch spans GPUs {gpus} with "
+                             f"transports {launched.transports}")
+    try:
+        ex.launch(job, placement, mig_aware=False)
+    except (DuplicateGpuError, TopologyMismatchError) as e:
+        stock = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError("replay: the stock launch formed")
+    print(f"  replay: {job.job_id} placed on GPUs {gpus} "
+          f"({[i.profile for i in placement.instances]}), "
+          f"{launched.pod.n_workers} workers, transports "
+          f"{sorted(set(launched.transports.values()))}, entry point "
+          f"{launched.pod.entrypoint!r}; stock: {stock}", flush=True)
+
+    # 6. the schedule that trace would ask the elastic driver for
+    sched = schedule_from_sim(again[0], n_devices=ELASTIC_RANKS,
+                              n_steps=ELASTIC["steps"])
+    sched_rows = [(e.step, e.mesh_shape, e.sim_time, e.kind) for e in sched]
+    seconds = time.perf_counter() - t_phase
+    print(f"  replay: {label} seed {REPLAY_SEEDS[0]}'s handoffs as an "
+          f"elastic schedule for {ELASTIC_RANKS} ranks over "
+          f"{ELASTIC['steps']} steps (information only): {sched_rows}; "
+          f"phase {seconds:.2f} s", flush=True)
+    emit("replay", cost_model=_cost_model_row(cm),
+         cost_model_cluster_b=_cost_model_row(cm_b),
+         handoff_s_uncapped=uncapped, handoff_s_median=median,
+         handoff_frac_below_drain=below, drain_ref_s=drain_ref,
+         drain_cycle_s=drain_cycles,
+         assumed_ckpt_s=CKPT_SAVE_S + CKPT_LOAD_S, rows=rows,
+         drain_cost_s=drain_total, handoff_cost_s=handoff_total,
+         makespan_delta_mean=delta_mean, fm_over_dm_drain=summary,
+         failures={k: dict(n_failures=r.n_failures,
+                           n_recoveries=r.n_recoveries,
+                           restart_cost_s=r.failure_restart_cost_s,
+                           lost_work_s=r.failure_lost_work_s,
+                           goodput=r.goodput, makespan=r.makespan)
+                   for k, r in fail.items()},
+         launch=dict(gpus=gpus, transports=sorted(
+             set(launched.transports.values())), stock=stock),
+         schedule=sched_rows, seconds=seconds)
 
 
 class Launches:
@@ -2737,8 +3007,10 @@ def run(torch) -> int:
     phase_train(torch, dev, launches)
     phase_sync(torch, dev, launches)
     ckpt_per_step = phase_ckpt(torch, dev, launches)
-    elastic_per_step = phase_elastic(torch, dev, launches)
-    cluster_launches = phase_cluster(torch, dev, launches)
+    elastic_per_step, elastic_measured = phase_elastic(torch, dev, launches)
+    cluster_launches, cluster_measured = phase_cluster(torch, dev,
+                                                       launches)
+    phase_replay(elastic_measured, cluster_measured)
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),

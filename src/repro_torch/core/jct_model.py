@@ -271,8 +271,8 @@ class ReconfigCostModel:
     """Prices what a reconfiguration event charges a suspended job.
 
     ``mode='drain'``: the incumbent drain-required cycle (C4) — the job
-    is stopped for the full ``ReconfigPlan`` duration (``core/modes.py``,
-    not yet ported: mig-manager reconfigure + checkpoint save/load + pod
+    is stopped for the full :class:`~repro_torch.core.modes.ReconfigPlan`
+    duration (mig-manager reconfigure + checkpoint save/load + pod
     churn), exactly what the simulator always charged.
 
     ``mode='handoff'``: the paper's software-coordinated handoff — each

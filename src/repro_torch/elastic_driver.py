@@ -102,7 +102,7 @@ def schedule_from_sim(result, *, n_devices: int, n_steps: int,
     """Map a simulator result's job-suspending reconfiguration events onto
     a training run's steps (duck-typed: anything with ``reconfig_events``
     — each with ``t``, ``n_affected`` and ``kind`` — and ``makespan``, as
-    ``repro.core.simulator.SimResult`` has).
+    ``repro_torch.core.simulator.SimResult`` has).
 
     Event times are scaled from the simulated span onto ``[1,
     n_steps - 1]`` (order-preserving, deduplicated); target

@@ -3,7 +3,7 @@
 
 - **Decisions.**  The reference's ``FakeManager`` cases
   (``tests/test_cluster_runtime.py``, run as written against both
-  packages through ``test_torch_control.reference_cases``), and scenarios
+  packages through ``_torch_reference.reference_cases``), and scenarios
   driven through both runtimes under the same ``FakeManager``: the repack
   list, the launch log (job, segment, attempt, shape, fault plan) in
   launch order, the stitched measurements and every job's outcome are the
@@ -50,7 +50,7 @@ from repro_torch.faults.plan import FaultPlan, FaultSpec
 from repro_torch.parallel.launch import run_ranks
 from tests import _torch_ranks as R
 from tests.conftest import run_multidevice
-from tests.test_torch_control import PACKAGES, reference_cases, run_case
+from tests._torch_reference import PACKAGES, reference_cases, run_case
 
 _MODULES = {p: reference_cases("test_cluster_runtime", p) for p in PACKAGES}
 FAKE_CASES = sorted(c for c in vars(_MODULES["repro"])

@@ -6,10 +6,10 @@ Two layers:
 - the reference's own unit cases of these modules
   (``tests/test_scheduler.py``, ``test_jct_model.py``,
   ``test_trace_parse.py``, ``test_profiles.py``, ``test_cluster_pool.py``
-  and the pool and policy cases of ``test_policy_frag.py``), each run as
-  written against both packages: the file's source is executed once with
-  its imports as they are and once with ``repro.core.*`` and
-  ``repro.cluster`` read as ``repro_torch``'s (``reference_cases``);
+  and ``test_policy_frag.py``), each run as written against both
+  packages: the file's source is executed once with its imports as they
+  are and once with ``repro.core.*`` and ``repro.cluster`` read as
+  ``repro_torch``'s (``tests/_torch_reference.py::reference_cases``);
 - the same inputs through both packages, the outputs compared exactly:
   every trace category at several seeds, CSV traces with and without the
   tenancy columns, scheduler decisions on generated queues with quotas,
@@ -21,11 +21,7 @@ applies: floats are compared with ``==`` (and by ``repr``, which tells
 -0.0 from 0.0).
 """
 import dataclasses
-import inspect
 import itertools
-import os
-import re
-import types
 
 import numpy as np
 import pytest
@@ -43,48 +39,17 @@ from repro_torch.cluster import pool as tpool
 from repro_torch.core import jct_model as tjct
 from repro_torch.core import job as tjob
 from repro_torch.core import leaves as tleaves
+from repro_torch.core import modes as tmodes
 from repro_torch.core import policy as tpolicy
 from repro_torch.core import profiles as tprofiles
 from repro_torch.core import scheduler as tsched
 from repro_torch.core import traces as ttraces
+from tests._torch_reference import PACKAGES, reference_cases, run_case
 
-TESTS = os.path.dirname(os.path.abspath(__file__))
-PACKAGES = ("repro", "repro_torch")
-
-# the modules whose imports the port's run of a reference test reads as
-# the port's (the simulator's ``core.modes`` is not ported: the policy
-# cases use its ``FlexMIG().setup``, which is ``partition_all``)
-_PORTED = re.compile(
-    r"^(\s*from\s+)repro\.(core\.(?:profiles|leaves|job|policy|scheduler|"
-    r"jct_model|traces)\b|core\s+import\s+profiles\b|cluster\b|faults\b)",
-    re.MULTILINE)
-
-
-def reference_cases(name: str, package: str) -> types.ModuleType:
-    """``tests/<name>.py`` executed as a module, its imports of the ported
-    modules read as ``package``'s."""
-    path = os.path.join(TESTS, name + ".py")
-    with open(path) as f:
-        src = f.read()
-    if package == "repro_torch":
-        src = _PORTED.sub(r"\1repro_torch.\2", src)
-    mod = types.ModuleType(f"{name}[{package}]")
-    mod.__file__ = path
-    exec(compile(src, path, "exec"), mod.__dict__)
-    return mod
-
-
-def run_case(mod: types.ModuleType, case: str, tmp_path) -> None:
-    fn = getattr(mod, case)
-    params = inspect.signature(fn).parameters
-    fn(**({"tmp_path": tmp_path} if "tmp_path" in params else {}))
-
-
-# the reference's files of these modules; the simulator's mode is not a
-# pool or policy case
+# the reference's files of these modules
 REFERENCE_FILES = ("test_scheduler", "test_jct_model", "test_trace_parse",
                    "test_profiles", "test_cluster_pool", "test_policy_frag")
-NOT_PORTED_CASES = {"test_fm_frag_aware_placement_mode"}
+NOT_PORTED_CASES = set()
 _MODULES = {(n, p): reference_cases(n, p)
             for n in REFERENCE_FILES for p in PACKAGES}
 CASES = [(n, c) for n in REFERENCE_FILES
@@ -97,11 +62,13 @@ def test_reference_files_have_their_cases():
               for n in REFERENCE_FILES}
     assert counts == {"test_scheduler": 12, "test_jct_model": 20,
                       "test_trace_parse": 6, "test_profiles": 8,
-                      "test_cluster_pool": 16, "test_policy_frag": 19}
+                      "test_cluster_pool": 16, "test_policy_frag": 20}
     # the port's run reads the port's modules, the reference's its own
     port = _MODULES[("test_cluster_pool", "repro_torch")]
     assert port.DevicePool is tpool.DevicePool
     assert _MODULES[("test_profiles", "repro_torch")].P is tprofiles
+    assert _MODULES[("test_policy_frag", "repro_torch")].FlexMIG \
+        is tmodes.FlexMIG
     assert _MODULES[("test_scheduler", "repro")].Scheduler \
         is jsched.Scheduler
 

@@ -9,10 +9,11 @@ its weights bridged from the reference's init.  Gates: the 3-handoff run
 uninterrupted run's losses bit for bit, every handoff verified, and its
 final checkpoint byte-identical to the uninterrupted run's; so do a drain
 cycle, an int8 + error-feedback handoff and the simulated trace's event
-(``schedule_from_sim``, equal to the reference's schedule).  A SIGKILL of
-the job at two sampled points (the commit window of handoff 2, the first
-step of grid segment 3), relaunched with ``resume=True``, continues
-bitwise and ends on the same final checkpoint.
+(``schedule_from_sim`` of the port's simulator, equal to the reference's
+schedule of the reference's).  A SIGKILL of the job at two sampled points
+(the commit window of handoff 2, the first step of grid segment 3),
+relaunched with ``resume=True``, continues bitwise and ends on the same
+final checkpoint.
 """
 import os
 import re
@@ -24,8 +25,8 @@ import pytest
 from repro import elastic as jelastic
 from repro import elastic_driver as jdriver
 from repro.core import leaves as jleaves
-from repro.core.simulator import simulate
-from repro.core.traces import TraceCategory, generate_trace
+from repro.core import simulator as jsim
+from repro.core import traces as jtraces
 from repro.models.registry import build_model as jax_build_model
 from repro.models.registry import get_config as jax_get_config
 from repro.models.registry import reduced_config as jax_reduced_config
@@ -33,6 +34,8 @@ from repro_torch import ckpt as ckpt_lib
 from repro_torch import elastic, optim
 from repro_torch.convert import params_from_jax
 from repro_torch.core.leaves import TpuLeaf
+from repro_torch.core import simulator as tsim
+from repro_torch.core import traces as ttraces
 from repro_torch.data import DataConfig
 from repro_torch.elastic_driver import (ElasticDriver, ReconfigEvent,
                                         factorizations, schedule_from_sim)
@@ -46,10 +49,16 @@ N_STEPS = 8
 SCHEDULE = [(2, (4, 1)), (4, (1, 4)), (6, (2, 2))]
 
 
-def _sim_with_drains():
-    jobs = generate_trace(TraceCategory("philly", "balanced", "mixed"),
-                          seed=7, double=False, max_size=4)
-    r = simulate(jobs, "DM")
+def _golden_trace(traces=ttraces):
+    return traces.generate_trace(
+        traces.TraceCategory("philly", "balanced", "mixed"), seed=7,
+        double=False, max_size=4)
+
+
+def _sim_with_drains(sim=tsim, traces=ttraces):
+    """A DM replay of the golden trace: the port's, or with the
+    reference's modules, the reference's."""
+    r = sim.simulate(_golden_trace(traces), "DM")
     assert r.n_drains > 0
     return r
 
@@ -78,9 +87,9 @@ def test_reconfig_event_validation():
     dict(n_devices=1, n_steps=20)], ids=["20", "8_one", "first", "short",
                                          "one_device"])
 def test_schedule_from_sim_matches_reference(kw):
-    r = _sim_with_drains()
-    ours = schedule_from_sim(r, **kw)
-    ref = jdriver.schedule_from_sim(r, **kw)
+    ours = schedule_from_sim(_sim_with_drains(), **kw)
+    ref = jdriver.schedule_from_sim(
+        _sim_with_drains(jsim, jtraces), **kw)
     assert [(e.step, e.mesh_shape, e.sim_time, e.kind) for e in ours] == \
         [(e.step, e.mesh_shape, e.sim_time, e.kind) for e in ref]
     if kw["n_steps"] == 20 and kw["n_devices"] == 4 and "max_events" \
@@ -90,10 +99,8 @@ def test_schedule_from_sim_matches_reference(kw):
 
 
 def test_schedule_from_sim_never_reconfiguring_trace():
-    jobs = generate_trace(TraceCategory("philly", "balanced", "mixed"),
-                          seed=7, double=False, max_size=4)
-    assert schedule_from_sim(simulate(jobs, "FM"), n_devices=4,
-                             n_steps=20) == []
+    assert schedule_from_sim(tsim.simulate(_golden_trace(), "FM"),
+                             n_devices=4, n_steps=20) == []
 
 
 def _dcfg():

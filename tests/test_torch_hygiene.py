@@ -43,17 +43,25 @@ CONTROL_PLANE = sorted(
     [os.path.join("core", n) for n in ("__init__.py", "profiles.py",
                                        "leaves.py", "job.py", "policy.py",
                                        "scheduler.py", "jct_model.py",
-                                       "traces.py")]
+                                       "traces.py", "modes.py",
+                                       "simulator.py", "metrics.py",
+                                       "registry.py", "executor.py",
+                                       "aggregation.py")]
     + [os.path.join("cluster", n) for n in ("__init__.py", "pool.py",
                                             "manager.py", "worker.py",
                                             "runtime.py")]
-    + [os.path.join("launch", "cluster.py")])
+    + [os.path.join("launch", "cluster.py"),
+       os.path.join("configs", "paper_workloads.py")])
+# a string naming a module of the JAX package as something to run or
+# import: ``python -m repro.launch.train``, ``"repro.elastic"``
+JAX_ENTRY = re.compile(r"-m\s+repro\.|[\"']repro\.[a-z]")
 
 
 @pytest.mark.parametrize("rel", CONTROL_PLANE)
 def test_control_plane_sources_import_no_jax_nor_repro(rel):
-    """The control plane and the cluster runtime are among the sources
-    the walk above reads, and each imports only the port."""
+    """The control plane, the simulator side and the cluster runtime are
+    among the sources the walk above reads, and each imports only the
+    port, lazily too."""
     path = os.path.join(PORT, rel)
     assert path in set(_port_sources())
     with open(path) as f:
@@ -61,6 +69,14 @@ def test_control_plane_sources_import_no_jax_nor_repro(rel):
     assert not FORBIDDEN.findall(src), rel
     assert not re.search(r"^\s*(?:import|from)\s+repro\b(?!_torch)", src,
                          re.MULTILINE), rel
+
+
+def test_no_source_names_a_jax_entry_point():
+    """No source of the port names a module of the JAX package to run
+    or import (the executor's pod entry point is the port's launcher)."""
+    for path in _port_sources():
+        with open(path) as f:
+            assert not JAX_ENTRY.findall(f.read()), path
 
 
 def test_importing_the_port_loads_no_jax():
