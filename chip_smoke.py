@@ -28,11 +28,12 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                with L2 cold (its share of the bytes bound) and warm; every
                K1 case must launch the route its D, dtype and alignment
                give (``rmsnorm_route_for``), by the profiler's kernel names.
-               K1 and K2 under autograd (forward the kernel, backward the
-               plain version's gradient) must give the plain version's input
-               gradients bitwise, at the serving shapes in f32 and bf16; K3
-               and K4, which have no backward, must refuse inputs that need
-               grad; and ``torch.mm(..., out_dtype=f32)`` must still have no
+               K1, K2 and K3 under autograd (forward the kernel, backward
+               the plain version's gradient) must give the plain version's
+               input gradients bitwise, at the serving shapes in f32 and
+               bf16; K4, which has no backward (its model's training is not
+               ported), must refuse inputs that need grad; and
+               ``torch.mm(..., out_dtype=f32)`` must still have no
                derivative (the reason ``LogitsFn`` exists).
 3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
    a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
@@ -64,19 +65,43 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                every leaf of params, mu, nu and masters bit for bit
                (``state_fingerprint``).  Prints step ms, tokens/s, peak
                GiB, the model-FLOPs share and a profile of one step
-               (loss-and-grad and AdamW apart).  Then one step of a 2-layer model at the same
-               widths on the card against the CPU: loss and grad norm
-               (``CARD_VS_CPU_RTOL``) and every leaf's gradient by norm
-               (``CARD_VS_CPU_LEAF_RTOL``).
+               (loss-and-grad and AdamW apart).  Then one step of a 2-layer
+               model at the same widths on the card against the CPU: loss
+               and grad norm (``CARD_VS_CPU_RTOL``) and every leaf's
+               gradient by norm (``CARD_VS_CPU_LEAF_RTOL``).
+4b. train_hybrid -- zamba2-1.2b at full width, bf16 params, f32 masters,
+               random weights from a seed: 3 steps of ``make_train_step``
+               (``HYBRID``: the train phase's batch, accum 2, remat at the
+               reference's granularity, AdamW) with K1, K2 and K3 under
+               autograd, then the same steps on the plain path from the
+               same weights.  Every parameter must get a finite, nonzero
+               gradient within ``TRAIN_LEAF_GRAD_RTOL`` of the plain
+               path's (by norm), or within ``NOISE_RATIO`` times the
+               plain path's own bf16 noise on it where that is larger,
+               and in f32 (the same weights, the f32 kernels) within
+               ``F32_LEAF_RTOL``; K1, K2 and K3 must launch as the config
+               gives (354, 24 and 152 a step: the forward and remat's
+               recompute of every super-block and tail block), the loss
+               must fall, and each step's loss and grad norm must lie
+               within ``TRAIN_LOSS_ATOL`` / ``TRAIN_GNORM_RTOL`` of the
+               plain path's.  Prints step ms, tokens/s, peak GiB, the
+               model-FLOPs share and a profile of one step.  Then one step
+               of 8 layers at the same widths (one super-block with the
+               shared attention, a 2-block tail; ``HYBRID_CPU``) on the
+               card against the CPU, as the train phase's, each leaf's
+               bound raised to ``NOISE_RATIO`` times the CPU's own bf16
+               noise where that is larger.
 5. sync     -- the two-tier gradient sync: the single-rank step (accum x
                ranks microbatches) as the oracle, then 4 gloo ranks, each
                a process on this card (``sync_rank``; they send their
                numbers to this process, which alone prints), train
                llama3.2-1b's widths at 2 layers on a (pod 2, data 2) grid
                through ``hier_bucketed``, ``hier_bucketed_zero1``, zero1
-               with overlap, with int8 + error feedback, and with both (3
-               steps each, ``SYNC_RUNS``).  Gates: every rank's params
-               bitwise equal after every step; hier_bucketed's loss and
+               with overlap, with int8 + error feedback, and with both (2
+               steps each, ``SYNC_RUNS``; AdamW without warmup,
+               ``SYNC_OPT``, so that step 0 updates the params).  Gates:
+               every rank's params bitwise equal after every step;
+               hier_bucketed's loss and
                grad norm within ``SYNC_BOUND`` of the oracle; zero1 bitwise
                hier_bucketed, overlap bitwise serial; K1 and K2 launches a
                rank a step as the config gives.  Then the reduced model in
@@ -87,11 +112,12 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                and its split, the bytes over each tier and each tier's
                rate beside the analytic SHM/NET model, each rank's peak
                memory, and the MIG mode (information only).
-6. ckpt     -- the sharded checkpoint at full width: llama3.2-1b (16
-               layers, the train phase's batch and optimizer) through
-               ``Trainer`` with K1 and K2: two uninterrupted runs of 4
-               steps (the card's own spread), a run of 2 steps that saves
-               at its end (async, sharded, ≈ 17 GB), a restore of that
+6. ckpt     -- the sharded checkpoint at full width: llama3.2-1b's
+               widths at 8 layers (the train phase's batch and optimizer)
+               through ``Trainer`` with K1 and K2: two uninterrupted runs
+               of 4 steps (the card's own spread), a run of 2 steps that
+               saves at its end (async, sharded, ≈ 10.5 GB), a restore of
+               that
                save timed alone, and a fresh ``Trainer`` resuming from it
                to step 4 (``CKPT``).  Gates: the restored state is the
                saved one bit for bit (per-leaf digests,
@@ -109,8 +135,8 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                and prints its peak GiB a rank), then ``ElasticDriver`` on
                llama3.2-1b's widths at 1 layer (``ELASTIC``, for time): the
                uninterrupted run, (2,2) -> (4,1) -> (1,4) -> (2,2) at steps
-               2, 4 and 6 of 8 (``ELASTIC_SCHEDULE``) and a drain cycle;
-               then the reduced
+               2, 3 and 4 of 5 (``ELASTIC_SCHEDULE``) and a drain cycle at
+               step 2 of 3; then the reduced
                model in f32 (``ELASTIC_REDUCED``): a handoff against a
                drain cycle at the same step, and the job SIGKILLed by its
                fault plan in the commit window of a handoff
@@ -130,10 +156,10 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                ``repro_torch.cluster.worker`` process whose gloo ranks
                share this card.  Run A is the reference's contention
                scenario (``CLUSTER_A``: ``launch/cluster.py``'s demo on a
-               2x4 pool, the reference worker's reduced model), then its
-               crash case (``CLUSTER_CRASH``); run B a 3-job trace at
-               llama3.2-1b's widths at 1 layer on a 2x2 pool
-               (``CLUSTER_B``).  Gates: the reference smoke's (a defrag of
+               2x4 pool, the reference worker's reduced model); beside it
+               its crash case (``CLUSTER_CRASH``) and run B, a 3-job trace
+               at llama3.2-1b's widths at 1 layer on a 2x2 pool
+               (``CLUSTER_B``), each run with its own runtime.  Gates: the reference smoke's (a defrag of
                j0 for j2 and at least 2 repacks, every job's steps, j2's
                losses j0's first two bit for bit, every boundary's costs
                above 0), the crash restarting j_a alone with equal losses,
@@ -174,13 +200,14 @@ bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
 comparison is made in f32 on the same weights and must pass whole, and the
 bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
-path's prefill and serve phases, and before the train phase's steps (and
-in each rank before each step of the sync phase, before the ckpt phase's
-runs, in each rank before each elastic run and in each cluster segment's
-ranks), and read just after; the
+path's prefill and serve phases, and before the train and train_hybrid
+phases' steps (and in each rank before each step of the sync phase,
+before the ckpt phase's runs, in each rank before each elastic run and in
+each cluster segment's ranks), and read just after; the
 run fails if a kernel of a path was never launched on
 it, or if a prefill, a decode step or a training step launched other
-counts than its model's layers give.  The line before the
+counts than its model's layers give.  A ``phase seconds`` line gives
+each phase's seconds.  The line before the
 last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
@@ -190,6 +217,7 @@ import json
 import math
 import os
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -486,14 +514,19 @@ def phase_kernels(torch, dev):
 
 
 def autograd_cases(torch, dev, g, dts) -> dict:
-    """K1 and K2 under autograd, as the training path runs them
-    (``RMSNormFn``, ``FlashAttentionFn``: forward the kernel, backward the
-    gradient of the plain version), at the serving shapes in f32 and bf16:
-    each input's gradient under one incoming gradient must equal, bitwise,
-    the plain version's under autograd (the backward recomputes it).
-    Returns per-case max abs differences (all 0)."""
+    """K1, K2 and K3 under autograd, as the training path runs them
+    (``RMSNormFn``, ``FlashAttentionFn``, ``SSDFn``: forward the kernel,
+    backward the gradient of the plain version), at the serving shapes in
+    f32 and bf16 (K3's at zamba2-1.2b's, chunk 256, the final state taking
+    no gradient as on the training path): each input's gradient under one
+    incoming gradient must equal, bitwise, the plain version's under
+    autograd (the backward recomputes it).  Returns per-case max abs
+    differences (all 0)."""
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba_scan.ops import ssd
+    from repro_torch.kernels.mamba_scan.ref import ssd_chunked
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -513,6 +546,7 @@ def autograd_cases(torch, dev, g, dts) -> dict:
              for dname in dts]
     cases += [("flash_attention", (4, 1024, H, Kv, 64), dname)
               for H, Kv in ((32, 8), (32, 32)) for dname in dts]
+    cases += [("ssd", (4, 1024, 64, 64, 1, 64, 256), dname) for dname in dts]
     for kernel, shape, dname in cases:
         dt = dts[dname]
         if kernel == "rmsnorm":
@@ -520,6 +554,16 @@ def autograd_cases(torch, dev, g, dts) -> dict:
             inputs = (torch.randn(R, D, generator=g, device=dev).to(dt),
                       torch.randn(D, generator=g, device=dev))
             fn, plain = rmsnorm, rmsnorm_ref
+        elif kernel == "ssd":
+            Bt, T, H, P, G, N, Q = shape
+            inputs = (
+                torch.randn(Bt, T, H, P, generator=g, device=dev).to(dt),
+                F.softplus(torch.randn(Bt, T, H, generator=g, device=dev)),
+                -torch.exp(torch.randn(H, generator=g, device=dev) * 0.5),
+                torch.randn(Bt, T, G, N, generator=g, device=dev).to(dt),
+                torch.randn(Bt, T, G, N, generator=g, device=dev).to(dt))
+            fn = lambda *a: ssd(*a, chunk=Q)[0]  # noqa: E731
+            plain = lambda *a: ssd_chunked(*a, chunk=Q)[0]  # noqa: E731
         else:
             B, S, H, Kv, D = shape
             inputs = tuple(torch.randn(B, S, h, D, generator=g,
@@ -541,22 +585,16 @@ def autograd_cases(torch, dev, g, dts) -> dict:
 
 
 def no_backward_cases(torch, dev, g) -> dict:
-    """K3 and K4 have no backward: on inputs that need grad they must
-    raise, not return an output with no gradient."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.mamba_scan.ops import ssd
+    """K4 has no backward (its model's training is not ported): on inputs
+    that need grad it must raise, not return an output with no
+    gradient."""
     from repro_torch.kernels.mlstm.ops import mlstm
-    x = torch.randn(1, 64, 2, 32, generator=g, device=dev).bfloat16()
-    dtv = F.softplus(torch.randn(1, 64, 2, generator=g, device=dev))
-    A = -torch.ones(2, device=dev)
-    B = torch.randn(1, 64, 1, 16, generator=g, device=dev).bfloat16()
     q = torch.randn(1, 64, 2, 16, generator=g, device=dev).bfloat16()
     gate = torch.randn(1, 64, 2, generator=g, device=dev)
-    calls = {"ssd": lambda t: ssd(t, dtv, A, B, B, chunk=32),
-             "mlstm": lambda t: mlstm(t, q, q, gate, gate, chunk=32)}
+    calls = {"mlstm": lambda t: mlstm(t, q, q, gate, gate, chunk=32)}
     out = {}
     for name, call in calls.items():
-        t = (x if name == "ssd" else q).clone().requires_grad_()
+        t = q.clone().requires_grad_()
         try:
             call(t)
         except RuntimeError as e:
@@ -1192,30 +1230,56 @@ TRAIN_LEAF_GRAD_RTOL = 0.05
 # 3 x 4.94 GB)
 TRAIN_FUNCTIONAL_PEAK_GIB = 54.62
 TRAIN_PEAK_DROP_GIB = 10.0
+# The hybrid's small mamba leaves (conv_B/C, wB/wC, wdt, dt_bias, A_log,
+# Dskip) carry bf16 rounding noise near their gradients' size: on the plain
+# path the bf16 gradient lies up to 0.125 (by norm) from the f32 one on the
+# same weights (H100 80GB HBM3, 700 W; PERF.md §6).  Where that noise on a
+# parameter exceeds a leaf bound, the bound on it is NOISE_RATIO times the
+# noise: two bf16 computations whose roundings are independent and of that
+# size lie sqrt(2) times it apart (measured: the kernel path at most 1.03
+# times the noise from the plain path, the card at most 1.10 times the
+# CPU's noise from the CPU).  The kernel path in f32 (the f32 kernels)
+# must lie within F32_LEAF_RTOL of the plain path in f32 on every
+# parameter (measured 2.2e-5 at most).
+NOISE_RATIO = 1.5
+F32_LEAF_RTOL = 1e-3
 
 
 def expected_train_launches(cfg, accum: int, remat: bool = True) -> dict:
-    """K1 and K2 launches of one training step of the dense model: per
-    microbatch the forward's (two norms a layer and the final norm; one
-    attention a layer) and, with remat, its recompute of every layer in
-    the backward (the final norm is not in a checkpointed layer); the
-    backward itself launches none (it is the plain versions' gradient)."""
-    L = cfg.n_layers
-    R = L if remat else 0
-    return {"rmsnorm": accum * ((2 * L + 1) + 2 * R),
-            "flash_attention": accum * (L + R), "ssd": 0, "mlstm": 0}
+    """Kernel launches of one training step: per microbatch the forward's
+    (``expected_launches``, a prefill's) and, with remat, its recompute of
+    every checkpointed block in the backward; the backward itself launches
+    none (it is the plain versions' gradient).  Dense: every layer is
+    checkpointed, so all but the final norm run again.  Hybrid: the
+    reference checkpoints each super-block (its mamba blocks and the
+    shared attention's application) and each tail block, which again
+    leaves out only the final norm: all of a prefill's SSD scans and
+    attentions and all its norms but one run twice."""
+    assert cfg.family in ("dense", "hybrid"), cfg.family
+    once = expected_launches(cfg)
+    again = ({k: n - (k == "rmsnorm") for k, n in once.items()} if remat
+             else {k: 0 for k in once})
+    return {k: accum * (once[k] + again[k]) for k in once}
 
 
 def train_flops(cfg, n_params: int, tokens: int, batch: int,
                 seq: int) -> float:
     """Model FLOPs of one step: 6·N·tokens for the weights' products
     (forward and backward, the tied embedding counted once for the logits)
-    and 3x the causal attention forward's QKᵀ and P·V; remat's recompute
-    is left out."""
+    and 3x the forward of each causal attention (QKᵀ and P·V) and, in the
+    hybrid, of each SSD scan (``ssd_cases``' count at the config's chunk);
+    remat's recompute is left out."""
     pairs = seq * (seq + 1) // 2
-    attn = 4 * cfg.resolved_head_dim * pairs * batch * cfg.n_heads \
-        * cfg.n_layers
-    return 6 * n_params * tokens + 3 * attn
+    n_attn = expected_launches(cfg)["flash_attention"]
+    attn = 4 * cfg.resolved_head_dim * pairs * batch * cfg.n_heads * n_attn
+    scan = 0
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        Q, P, N = min(s.chunk, seq), s.head_dim, s.d_state
+        per_chunk = 2 * (Q * (Q + 1) // 2) * (N + P) + 4 * Q * P * N
+        scan = per_chunk * batch * s.n_heads(cfg.d_model) * (seq // Q) \
+            * cfg.n_layers
+    return 6 * n_params * tokens + 3 * (attn + scan)
 
 
 def kernel_group(name: str) -> str:
@@ -1224,6 +1288,8 @@ def kernel_group(name: str) -> str:
         return "K1 rmsnorm"
     if "flash_fwd" in name:
         return "K2 flash_attention"
+    if "ssd_fwd" in name:
+        return "K3 ssd"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
         return "cuBLAS GEMM"
     if "softmax" in name.lower():
@@ -1237,12 +1303,14 @@ def kernel_group(name: str) -> str:
 
 def profile_groups(torch, fn) -> dict:
     """One call of ``fn`` under the profiler: device ms by kernel group,
-    device kernels, wall ms (synchronised) and the device's idle share."""
+    device kernels, wall ms (synchronised) and the device's idle share.
+    It traces the device alone: host ops add nothing to these numbers,
+    and a training step's tens of thousands of them take the profiler
+    seconds to sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1292,6 +1360,26 @@ def plain_backward_ms(torch, dev, cfg, rows: int) -> dict:
                 torch, lambda: rmsnorm_backward_ref(x, w, x), iters=10)}
 
 
+def plain_ssd_backward_ms(torch, dev, cfg, rows: int) -> float:
+    """Time of one call of K3's backward (``ssd_backward_ref``: the plain
+    scan's gradient, recomputed) at a training microbatch of ``rows`` x
+    1024 tokens of the hybrid ``cfg``, bf16, the final state taking no
+    gradient."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan.ref import ssd_backward_ref
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    s, S = cfg.ssm, HYBRID["seq"]
+    H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    x, gy = (torch.randn(rows, S, H, P, generator=g, device=dev).bfloat16()
+             for _ in range(2))
+    dtv = F.softplus(torch.randn(rows, S, H, generator=g, device=dev))
+    A = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.5)
+    B, C = (torch.randn(rows, S, 1, N, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    return cuda_ms(torch, lambda: ssd_backward_ref(
+        x, dtv, A, B, C, gy, None, chunk=min(s.chunk, S)), iters=3)
+
+
 def load_weights(torch, model, weights) -> None:
     """Writes ``weights`` (tensors by parameter name) into the model's own
     parameters."""
@@ -1334,6 +1422,50 @@ def run_steps(torch, dev, step, params, opt_state, batches):
                          grad_norm=m["grad_norm"].item(),
                          ms=(time.perf_counter() - t0) * 1e3, lr=m["lr"]))
     return rows, params, opt_state
+
+
+def plain_steps(torch, dev, tag, model, step, ocfg, weights, batches,
+                launches):
+    """``step`` over ``batches`` on the plain path, from ``weights``
+    written into the model's own parameters: ``run_steps``' rows.  The
+    plain path must launch no kernel."""
+    from repro_torch.train import init_train_state
+    model.use_kernels = False
+    load_weights(torch, model, weights)
+    params, opt_state = init_train_state(model, ocfg, seed=None)
+    before = launches.snapshot()
+    rows, params, opt_state = run_steps(torch, dev, step, params, opt_state,
+                                        batches)
+    model.use_kernels = True
+    if launches.snapshot() != before:
+        raise AssertionError(f"{tag}: the plain training path launched a "
+                             f"kernel")
+    return rows
+
+
+def hold_paths(tag, kernel_rows, plain_rows):
+    """The kernel path's loss must fall, and each step's loss and grad norm
+    lie within TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL of the plain path's;
+    prints both paths' steps.  Returns (|dloss|, relative dnorm, each
+    path's median step s past the first, which pays one-time costs)."""
+    losses = [r["loss"] for r in kernel_rows]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
+    dloss = [abs(a["loss"] - p["loss"]) for a, p in zip(kernel_rows,
+                                                         plain_rows)]
+    dnorm = [abs(a["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+             for a, p in zip(kernel_rows, plain_rows)]
+    if max(dloss) > TRAIN_LOSS_ATOL or max(dnorm) > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"{tag}: kernel path against plain path: "
+                             f"|dloss| {dloss}, grad norm rel {dnorm}")
+    for i, (a, p) in enumerate(zip(kernel_rows, plain_rows)):
+        print(f"  {tag} step {i}: loss {a['loss']:.6f} (plain "
+              f"{p['loss']:.6f})  grad_norm {a['grad_norm']:.6f} (plain "
+              f"{p['grad_norm']:.6f})  lr {a['lr']:.3e}  {a['ms']:.1f} ms "
+              f"(plain {p['ms']:.1f} ms)", flush=True)
+    medians = [statistics.median(r["ms"] for r in rows[1:]) / 1e3
+               for rows in (kernel_rows, plain_rows)]
+    return dloss, dnorm, medians
 
 
 def phase_train(torch, dev, launches):
@@ -1389,7 +1521,7 @@ def phase_train(torch, dev, launches):
     # model's storage, in place
     step = make_train_step(model, ocfg, accum=accum, device=dev)
     # kept on the host, out of the peak the in-place run is held to
-    weights0 = {n: p.cpu() for n, p in params.items()}
+    weights0 = {n: p.to("cpu", copy=True) for n, p in params.items()}
     params, opt_state = init_train_state(model, ocfg, seed=None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1449,35 +1581,11 @@ def phase_train(torch, dev, launches):
     print(f"  train: clone-based run bitwise the in-place one (losses and "
           f"all {len(in_place_print)} leaves of params, mu, nu and "
           f"masters); its peak {clone_peak_gib:.2f} GiB", flush=True)
-    model.use_kernels = False
-    load_weights(torch, model, weights0)
+    plain_rows = plain_steps(torch, dev, "train", model, step, ocfg,
+                             weights0, batches, launches)
     del weights0
-    params, opt_state = init_train_state(model, ocfg, seed=None)
-    before = launches.snapshot()
-    plain_rows, params, opt_state = run_steps(torch, dev, step, params,
-                                              opt_state, batches)
-    if launches.snapshot() != before:
-        raise AssertionError("the plain training path launched a kernel")
-    model.use_kernels = True
-    del params, opt_state
-
-    losses = [r["loss"] for r in kernel_rows]
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
-    dloss = [abs(a["loss"] - p["loss"]) for a, p in zip(kernel_rows,
-                                                         plain_rows)]
-    dnorm = [abs(a["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
-             for a, p in zip(kernel_rows, plain_rows)]
-    if max(dloss) > TRAIN_LOSS_ATOL or max(dnorm) > TRAIN_GNORM_RTOL:
-        raise AssertionError(f"train: kernel path against plain path: "
-                             f"|dloss| {dloss}, grad norm rel {dnorm}")
-    for i, (a, p) in enumerate(zip(kernel_rows, plain_rows)):
-        print(f"  train step {i}: loss {a['loss']:.6f} (plain "
-              f"{p['loss']:.6f})  grad_norm {a['grad_norm']:.6f} (plain "
-              f"{p['grad_norm']:.6f})  lr {a['lr']:.3e}  {a['ms']:.1f} ms "
-              f"(plain {p['ms']:.1f} ms)", flush=True)
-    step_s = sorted(r["ms"] for r in kernel_rows[1:])[(steps - 1) // 2] / 1e3
-    plain_s = sorted(r["ms"] for r in plain_rows[1:])[(steps - 1) // 2] / 1e3
+    dloss, dnorm, (step_s, plain_s) = hold_paths("train", kernel_rows,
+                                                 plain_rows)
     flops = train_flops(cfg, n_params, tokens, TRAIN["global_batch"],
                         TRAIN["seq"])
     del model
@@ -1506,23 +1614,29 @@ def phase_train(torch, dev, launches):
          plain_backward_ms_per_step=bwd_per_step,
          profile_loss_and_grad=prof_lg,
          profile_adamw=prof_opt)
-    card_vs_cpu(torch, dev, dataclasses.replace(cfg, n_layers=2))
+    hold_leaves("train card_vs_cpu", card_vs_cpu(
+        torch, dev, dataclasses.replace(cfg, n_layers=2))["leaf"],
+        CARD_VS_CPU_LEAF_RTOL)
 
 
-def card_vs_cpu(torch, dev, cfg):
-    """One training step of ``cfg`` (llama's widths, 2 layers), batch 2 x
-    128, bf16, on the card with the kernels and on the CPU from the same
-    weights: loss and grad norm within CARD_VS_CPU_RTOL, and every leaf's
-    gradient within CARD_VS_CPU_LEAF_RTOL of the CPU's by norm (the
-    embedding's is the one ``LogitsFn``'s backward makes on the card)."""
+def card_vs_cpu(torch, dev, cfg, *, batch_size: int = 2, seq: int = 128,
+                tag: str = "train") -> dict:
+    """One training step of ``cfg`` (published widths, few layers), bf16,
+    on the card with the kernels and on the CPU from the same weights:
+    loss and grad norm within CARD_VS_CPU_RTOL.  Returns each parameter's
+    gradient on the card against the CPU's, by norm (the dense
+    embedding's is the one ``LogitsFn``'s backward makes on the card), for
+    the caller's ``hold_leaves``, with the CPU's model, batch and
+    gradient."""
     from repro_torch import optim
     from repro_torch.data import DataConfig, SyntheticCorpus
     from repro_torch.models.registry import build_model
     from repro_torch.train import (batch_to, init_train_state,
                                    make_loss_and_grad)
     ocfg = optim.AdamWConfig(**TRAIN_OPT)
-    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=128, global_batch=2)).batch(0)
+    batch = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq,
+        global_batch=batch_size)).batch(0)
     card = build_model(cfg, device=dev, seed=SEED)
     cpu = build_model(cfg, device="cpu", seed=None)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
@@ -1540,24 +1654,232 @@ def card_vs_cpu(torch, dev, cfg):
         del params, opt_state
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in ("loss", "grad_norm")}
-    leaf = {n: ((gk.cpu() - grads["cpu"][n]).norm()
-                / grads["cpu"][n].norm()).item()
-            for n, gk in grads["card"].items()}
-    worst = max(leaf, key=leaf.get)
-    emit("train card_vs_cpu", layers=cfg.n_layers, batch=2, seq=128,
-         **out, relative=rel, rtol=CARD_VS_CPU_RTOL,
-         leaf_grad_rel_diff={"worst": {worst: leaf[worst]},
-                             "embed": leaf["embed"]},
-         leaf_rtol=CARD_VS_CPU_LEAF_RTOL)
+    leaf, per_leaf = leaf_deviations(
+        torch, {n: g.cpu() for n, g in grads["card"].items()}, grads["cpu"],
+        cfg.family)
+    emit(f"{tag} card_vs_cpu", arch=cfg.arch_id, layers=cfg.n_layers,
+         batch=batch_size, seq=seq, **out, relative=rel,
+         rtol=CARD_VS_CPU_RTOL, leaf_grad_rel_diff_embed=leaf["embed"],
+         leaf_grad_rel_diff_top=top(leaf),
+         stacked_leaf_grad_rel_diff_top=top(per_leaf))
     if max(rel.values()) > CARD_VS_CPU_RTOL:
-        raise AssertionError(f"train: the card against the CPU: {out}, "
+        raise AssertionError(f"{tag}: the card against the CPU: {out}, "
                              f"relative {rel}")
-    if leaf[worst] > CARD_VS_CPU_LEAF_RTOL:
-        raise AssertionError(f"train: leaf {worst}'s gradient on the card "
-                             f"lies {leaf[worst]:.3e} (by norm) from the "
-                             f"CPU's")
-    del card, cpu, grads
+    del card
     torch.cuda.empty_cache()
+    return dict(leaf=leaf, cpu=cpu, grads=grads["cpu"],
+                batch=batch_to(batch, torch.device("cpu")))
+
+
+def bf16_noise(torch, model, cfg, batch, accum: int, grads) -> tuple:
+    """The bf16 rounding noise of ``grads``, the plain path's gradient of
+    ``model`` (bf16) at ``batch``: per parameter its deviation, by norm,
+    from the plain path's gradient of the same weights in f32.  Returns
+    the noise, the f32 model and its gradient."""
+    from repro_torch.train import make_loss_and_grad
+    m32 = f32_copy(torch, model, cfg, grads["embed"].device)
+    m32.use_kernels = False
+    p32 = {n: p.detach() for n, p in m32.named_parameters()}
+    _, g32 = make_loss_and_grad(m32, accum=accum)(p32, batch)
+    noise, _ = leaf_deviations(torch, grads, g32, cfg.family)
+    return noise, m32, g32
+
+
+def hold_leaves(tag: str, dev: dict, rtol: float,
+                noise: dict | None = None) -> None:
+    """The leaf gate of the training checks: every parameter's gradient
+    deviation ``dev`` (by norm) within ``rtol`` or, where its bf16
+    ``noise`` makes that larger, within NOISE_RATIO times the noise."""
+    noise = noise or {}
+    bounds = {n: max(rtol, NOISE_RATIO * noise.get(n, 0.0)) for n in dev}
+    worst = max(dev, key=lambda n: dev[n] / bounds[n])
+    ratio = {n: dev[n] / noise[n] for n in dev if noise.get(n, 0.0) > 0}
+    emit(f"{tag} leaf bound", worst={worst: dev[worst]},
+         bound=bounds[worst], rtol=rtol, noise_ratio=NOISE_RATIO,
+         bounds_raised_by_noise=sum(b > rtol for b in bounds.values()),
+         bf16_noise_top=top(noise, 3),
+         deviation_over_noise_top=top(ratio, 3))
+    if dev[worst] > bounds[worst]:
+        raise AssertionError(f"{tag}: leaf {worst}'s gradient lies "
+                             f"{dev[worst]:.3e} (by norm) from the one it "
+                             f"is held to, beyond its bound "
+                             f"{bounds[worst]:.3e}")
+
+
+# the hybrid's training run: zamba2-1.2b at full width, bf16 params, f32
+# masters, remat, the train phase's batch, accumulation and optimizer
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID = dict(seq=1024, global_batch=8, accum=2, steps=3)
+# the card against the CPU: 8 layers at hybrid_attn_every 6 give one
+# super-block (6 mamba blocks and the shared attention) and a 2-block
+# tail; 2 x 256 tokens keep chunk 256 whole
+HYBRID_CPU = dict(layers=8, batch=2, seq=256)
+
+
+def leaf_deviations(torch, got, want, family) -> tuple:
+    """Per parameter and per leaf of the reference's tree (the parameters
+    of one stacked leaf taken together), |got - want| / |want| by norm."""
+    from repro_torch.collectives.bucketing import leaf_tree
+    sq = {n: ((g.float() - want[n].float()).square().sum().item(),
+              want[n].float().square().sum().item())
+          for n, g in got.items()}
+    per_param = {n: math.sqrt(d / w) for n, (d, w) in sq.items()}
+    per_leaf = {}
+    for path, leaf in leaf_tree(got, family).items():
+        d = sum(sq[n][0] for n in leaf.parts)
+        w = sum(sq[n][1] for n in leaf.parts)
+        per_leaf[path] = math.sqrt(d / w)
+    return per_param, per_leaf
+
+
+def top(d: dict, n: int = 5) -> dict:
+    return dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
+
+
+def phase_train_hybrid(torch, dev, launches):
+    """zamba2-1.2b trained at full width on the card through
+    ``make_train_step`` (bf16 params, f32 masters, remat at the
+    reference's granularity, accum 2), with K1, K2 and K3 under autograd,
+    against the same steps on the plain path from the same weights and
+    batches; then one step of 8 layers at the same widths on the card
+    against the CPU."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.train import (batch_to, init_train_state,
+                                   make_loss_and_grad, make_train_step)
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    accum, steps = HYBRID["accum"], HYBRID["steps"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    laps = {"init": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = optim.AdamWConfig(**TRAIN_OPT)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=HYBRID["seq"],
+        global_batch=HYBRID["global_batch"]))
+    batches = [corpus.batch(i) for i in range(steps)]
+    tokens = HYBRID["global_batch"] * HYBRID["seq"]
+
+    # every leaf gets a finite, nonzero gradient on the kernel path, and
+    # each lies near the plain path's (``hold_leaves``, against the plain
+    # path's own bf16 noise); in f32 the kernel path lies within
+    # F32_LEAF_RTOL of the plain path
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    lg = make_loss_and_grad(model, accum=accum)
+    b0 = batch_to(batches[0], dev)
+    _, g_kernel = lg(params, b0)
+    model.use_kernels = False
+    _, g_plain = lg(params, b0)
+    model.use_kernels = True
+    for n, gk in g_kernel.items():
+        nk = gk.norm().item()
+        if not (math.isfinite(nk) and nk > 0 and torch.isfinite(gk).all()):
+            raise AssertionError(f"train_hybrid: leaf {n} has gradient norm "
+                                 f"{nk} on the kernel path")
+    per_param, per_leaf = leaf_deviations(torch, g_kernel, g_plain,
+                                          cfg.family)
+    del g_kernel
+    noise, m32, g32 = bf16_noise(torch, model, cfg, b0, accum, g_plain)
+    del g_plain
+    m32.use_kernels = True
+    _, g32k = make_loss_and_grad(m32, accum=accum)(
+        {n: p.detach() for n, p in m32.named_parameters()}, b0)
+    f32_dev, _ = leaf_deviations(torch, g32k, g32, cfg.family)
+    del m32, g32, g32k
+    torch.cuda.empty_cache()
+    print(f"  train_hybrid: kernel path against plain path, by norm: "
+          f"worst parameters {top(per_param)}; worst leaves "
+          f"{top(per_leaf)}; in f32 {top(f32_dev, 3)}", flush=True)
+    hold_leaves("train_hybrid", per_param, TRAIN_LEAF_GRAD_RTOL, noise)
+    worst32 = max(f32_dev, key=f32_dev.get)
+    if f32_dev[worst32] > F32_LEAF_RTOL:
+        raise AssertionError(f"train_hybrid: in f32, leaf {worst32}'s "
+                             f"gradient lies {f32_dev[worst32]:.3e} (by "
+                             f"norm) from the plain path's")
+    laps["leaf_grads"] = time.perf_counter() - t0
+
+    # the kernel path's steps, then the plain path's, from the same
+    # weights: the step updates the params, which share the model's
+    # storage, in place
+    step = make_train_step(model, ocfg, accum=accum, device=dev)
+    weights0 = {n: p.to("cpu", copy=True) for n, p in params.items()}
+    params, opt_state = init_train_state(model, ocfg, seed=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    t0 = time.perf_counter()
+    kernel_rows, params, opt_state = run_steps(torch, dev, step, params,
+                                               opt_state, batches)
+    launches.read("train_hybrid")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    laps["steps_kernel"] = time.perf_counter() - t0
+    # one more step, profiled, in two windows: loss-and-grad, AdamW
+    t0 = time.perf_counter()
+    b = batch_to(batches[0], dev)
+    holder = {}
+    prof_lg = profile_groups(torch, lambda: holder.update(
+        lg=lg(params, b)))
+    prof_opt = profile_groups(torch, lambda: optim.apply(
+        ocfg, params, holder["lg"][1], opt_state))
+    del params, opt_state, holder
+    laps["profile"] = time.perf_counter() - t0
+    per_step = {k: n / steps
+                for k, n in launches.phases["train_hybrid"].items()}
+    want = expected_train_launches(cfg, accum)
+    if per_step != want:
+        raise AssertionError(f"train_hybrid: launches per step {per_step}, "
+                             f"the config gives {want}")
+    t0 = time.perf_counter()
+    plain_rows = plain_steps(torch, dev, "train_hybrid", model, step, ocfg,
+                             weights0, batches, launches)
+    del weights0
+    laps["steps_plain"] = time.perf_counter() - t0
+    dloss, dnorm, (step_s, plain_s) = hold_paths("train_hybrid",
+                                                 kernel_rows, plain_rows)
+    flops = train_flops(cfg, n_params, tokens, HYBRID["global_batch"],
+                        HYBRID["seq"])
+    del model
+    torch.cuda.empty_cache()
+    # K3's backward (the plain scan's gradient, recomputed) at a
+    # microbatch's shape, timed alone: it runs once a forward call, not
+    # again for remat's recompute, so accum x n_layers calls a step
+    ssd_bwd_ms = plain_ssd_backward_ms(torch, dev, cfg,
+                                       HYBRID["global_batch"] // accum)
+    ssd_bwd_calls = accum * expected_launches(cfg)["ssd"]
+    emit("train_hybrid", arch=HYBRID_ARCH, params=n_params, **HYBRID,
+         optimizer=TRAIN_OPT, steps_kernel=kernel_rows,
+         steps_plain=plain_rows, median_step_s=step_s,
+         plain_median_step_s=plain_s, steps_per_s=1 / step_s,
+         tokens_per_s=tokens / step_s, plain_tokens_per_s=tokens / plain_s,
+         peak_memory_gib=peak_gib, model_flops_per_step=flops,
+         model_flops_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+         flops_note="6*N*tokens + 3x the forward of the causal attentions "
+                    "and SSD scans; remat's recompute left out",
+         max_abs_dloss=max(dloss), max_rel_dgrad_norm=max(dnorm),
+         leaf_grad_rel_diff_top=top(per_param),
+         stacked_leaf_grad_rel_diff_top=top(per_leaf),
+         f32_leaf_grad_rel_diff_top=top(f32_dev, 3),
+         f32_leaf_rtol=F32_LEAF_RTOL, launches_per_step=per_step,
+         plain_ssd_backward_ms_per_call=ssd_bwd_ms,
+         plain_ssd_backward_ms_per_step=ssd_bwd_ms * ssd_bwd_calls,
+         profile_loss_and_grad=prof_lg, profile_adamw=prof_opt)
+    t0 = time.perf_counter()
+    cpu_cfg = dataclasses.replace(cfg, n_layers=HYBRID_CPU["layers"])
+    res = card_vs_cpu(torch, dev, cpu_cfg, batch_size=HYBRID_CPU["batch"],
+                      seq=HYBRID_CPU["seq"], tag="train_hybrid")
+    noise, _, _ = bf16_noise(torch, res["cpu"], cpu_cfg, res["batch"], 1,
+                             res["grads"])
+    hold_leaves("train_hybrid card_vs_cpu", res["leaf"],
+                CARD_VS_CPU_LEAF_RTOL, noise)
+    del res
+    laps["card_vs_cpu"] = time.perf_counter() - t0
+    emit("train_hybrid seconds", **laps,
+         total=time.perf_counter() - t_phase)
 
 
 # the sync phase: 4 gloo ranks on the one card train llama3.2-1b's widths
@@ -1567,7 +1889,11 @@ SYNC_RANKS = 4
 # 2 layers: four replicas share the card.  At 3 a rank peaks at 17.0 GiB
 # and the card kept 0.7-2.0 GiB free (PERF.md, PR 18), too little to count
 # on; at 2, 15.8 GiB a rank
-SYNC = dict(layers=2, seq=1024, global_batch=8, accum=2, steps=3)
+SYNC = dict(layers=2, seq=1024, global_batch=8, accum=2, steps=2)
+# the train phase's AdamW without its warmup, whose first step has a
+# learning rate of 0: here step 0 updates the params, so step 1's loss and
+# grad norm, held against the oracle, are taken after a full-width update
+SYNC_OPT = dict(TRAIN_OPT, warmup_steps=0)
 SYNC_GRIDS = {"22": ((2, 2), ("pod", "data")), "41": ((4, 1), ("pod", "data")),
               "14": ((1, 4), ("pod", "data"))}
 # hier_bucketed against the single-rank step: the reference's bound between
@@ -1722,7 +2048,7 @@ def sync_rank(rank: int, world: int) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for name, kw in SYNC_RUNS.items():
         out["full"][name] = sync_run(torch, dev, model, grids["22"], kw,
-                                     batches, TRAIN_OPT, SYNC["accum"],
+                                     batches, SYNC_OPT, SYNC["accum"],
                                      kernels)
     out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     out["card_free_gib"] = min(s["card_free_gib"] for run in
@@ -1799,7 +2125,7 @@ def phase_sync(torch, dev, launches):
     model = build_model(cfg, device=dev, seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     batches = sync_batches(torch, dev, cfg.vocab_size, SYNC, SYNC["steps"])
-    oracle = sync_oracle(torch, dev, model, batches, TRAIN_OPT,
+    oracle = sync_oracle(torch, dev, model, batches, SYNC_OPT,
                          SYNC["accum"], SYNC["steps"])
     del model, batches
     rcfg = reduced_config(get_config(SYNC_ARCH))
@@ -1928,7 +2254,7 @@ def phase_sync(torch, dev, launches):
               f"{gg:.6f}; single rank {lo:.6f} {go:.6f}", flush=True)
     emit("sync", arch=SYNC_ARCH, params=n_params, ranks=SYNC_RANKS,
          grid=SYNC_GRIDS["22"], **SYNC,
-         optimizer=TRAIN_OPT, seconds=time.perf_counter() - t_phase,
+         optimizer=SYNC_OPT, seconds=time.perf_counter() - t_phase,
          ranks_seconds=ranks_s, mig_mode=mig,
          gloo_takes_cuda_tensors=[r["gloo_takes_cuda_tensors"] for r in res],
          peak_memory_gib=[r["peak_memory_gib"] for r in res],
@@ -1952,11 +2278,14 @@ def phase_sync(torch, dev, launches):
 # ---------------------------------------------------------------------------
 
 CKPT_ARCH = "llama3.2-1b"
-# full width, 16 layers, the train phase's batch: a run of 4 steps (twice:
-# the card's own spread), one of 2 steps that saves at its end (async,
-# sharded), and a resume from that save to 4.  The checkpoint holds bf16
-# params and f32 masters and moments, ≈ 17 GB
-CKPT = dict(seq=1024, global_batch=8, accum=2, steps=4, save_at=2)
+# full width at 8 of the 16 layers, the train phase's batch: a run of 4
+# steps (twice: the card's own spread), one of 2 steps that saves at its
+# end (async, sharded), and a resume from that save to 4.  The checkpoint
+# holds bf16 params and f32 masters and moments, ≈ 10.5 GB (≈ 17 GB at 16
+# layers, whose save, restore and resume took the phase 91 s of the
+# script's 1200, bound by the host copy and the disk; PERF.md)
+CKPT = dict(layers=8, seq=1024, global_batch=8, accum=2, steps=4,
+            save_at=2)
 # everything the phases write lies under the gitignored chiprun_out/ and
 # is deleted when the phase ends
 CKPT_DIR = os.path.join(REPO, "chiprun_out", "ckpt_phase")
@@ -1970,12 +2299,18 @@ ELASTIC_RANKS = 4
 # the old, that took ≈ 19.5 GiB a rank and ran the card out of memory
 # (PERF.md); the in-place update lets it fit, which the probe shows with
 # one step on (4,1) at 2 layers, while the schedule stays at 1 layer for
-# time.  (2,2) -> (4,1) -> (1,4) -> (2,2) at steps 2, 4 and 6 of 8, as in
-# tests/test_fault_matrix.py
-ELASTIC = dict(layers=1, seq=512, global_batch=8, accum=2, steps=8,
+# time.  (2,2) -> (4,1) -> (1,4) -> (2,2) at steps 2, 3 and 4 of 5 (a
+# step of the deterministic reduce over gloo takes 8-12 s at these widths:
+# tests/test_fault_matrix.py's steps 2, 4 and 6 of 8 took the phase 370 s
+# of the script's 1200), the drain cycle at step 2 of 3.  A reconfiguration
+# is held at step 2 or later: TRAIN_OPT's step 0 has a learning rate of 0,
+# so the state restored at step 1 would still be the init's; and each run
+# keeps step 1 a steady step, the one whose time a first step on a new
+# grid is measured against (``compile_s``, the replay's recompile)
+ELASTIC = dict(layers=1, seq=512, global_batch=8, accum=2, steps=5,
                bucket_bytes=32 << 20)
 ELASTIC_PROBE = dict(layers=2, shape=(4, 1), steps=1)
-ELASTIC_SCHEDULE = ((2, (4, 1)), (4, (1, 4)), (6, (2, 2)))
+ELASTIC_SCHEDULE = ((2, (4, 1)), (3, (1, 4)), (4, (2, 2)))
 # the reduced model in f32: a handoff against a drain cycle at one step,
 # and the kill-and-resume, whose relaunch replays 6 steps and 2 handoffs
 ELASTIC_REDUCED = dict(seq=64, global_batch=8, accum=2, steps=8,
@@ -2021,14 +2356,16 @@ def _trainer_run(torch, dev, model, ocfg, dcfg, n, *, every, resume,
 
 
 def phase_ckpt(torch, dev, launches):
-    """The sharded checkpoint at full width on the card: llama3.2-1b
-    trained through ``Trainer`` (K1 and K2 under autograd), an async
+    """The sharded checkpoint at full width on the card: llama3.2-1b's
+    widths at ``CKPT["layers"]`` layers trained through ``Trainer`` (K1
+    and K2 under autograd), an async
     sharded save at step 2, a timed restore of it, and a fresh ``Trainer``
     that resumes from it.  Gates: the restored state is the saved state
     bit for bit (per-leaf digests), the resumed run's losses and final
     state are the uninterrupted run's, and K1 and K2 launch as
     ``expected_train_launches`` gives, K3 and K4 never.  Returns the
     kernels' launches a step, as counted."""
+    import dataclasses
     import gc
     import shutil
     from repro_torch import ckpt, optim
@@ -2039,7 +2376,7 @@ def phase_ckpt(torch, dev, launches):
     t_phase = time.perf_counter()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     free_gb = _disk_free_gb(CKPT_DIR)
-    cfg = get_config(CKPT_ARCH)
+    cfg = dataclasses.replace(get_config(CKPT_ARCH), n_layers=CKPT["layers"])
     model = build_model(cfg, device=dev, seed=SEED)
     ocfg = optim.AdamWConfig(**TRAIN_OPT)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CKPT["seq"],
@@ -2345,6 +2682,10 @@ def phase_elastic(torch, dev, launches):
                 if not all(m["verified"] for m in run["measurements"]):
                     raise AssertionError(f"elastic {part} {name}: a "
                                          f"handoff was not verified")
+                if run["measurements"] and not run["steady_step_s"] > 0:
+                    raise AssertionError(
+                        f"elastic {part} {name}: no steady step, so each "
+                        f"reconfiguration's compile_s is a whole step")
                 check_launches(f"{part} {name}", r, run, want[part])
     full0 = res[0]["full"]
     if [tuple(m["to_shape"]) for m in full0["handoff"]["measurements"]] \
@@ -2425,7 +2766,7 @@ def phase_elastic(torch, dev, launches):
 # for j2 at step 6, a rebalance at step 12: j0's middle segment, a restore,
 # 6 steps and a save, outlasts j2's 2 steps, which admit the rebalance),
 # and beside it its crash case (a 1x4 pool, j_a SIGKILLed at its first
-# step).  Run B is a trace of 3 jobs at
+# step) and run B.  Run B is a trace of 3 jobs at
 # llama3.2-1b's published widths at 1 layer on a 2x2 pool (at most 4 ranks
 # live), the elastic phase's data: b0 and b1 fill the pool (2,1) each; b1
 # leaves after 1 step, and the tier-0 b2, pinned to one host, finds the
@@ -2570,12 +2911,14 @@ def phase_cluster(torch, dev, launches):
         return out
 
     try:
-        # run A and the crash case side by side, each with its own pool
-        # and runtime (their ranks together use a few GiB of the card)
+        # the three runs side by side, each with its own pool and runtime
+        # (run A's and the crash case's ranks use a few GiB of the card,
+        # run B's at most 4 x 11.4 GiB)
         specs_a = demo_specs(a["steps"], a["segment_steps"])
         specs_c = [ClusterJobSpec("j_a", size=2, n_steps=2),
                    ClusterJobSpec("j_b", size=2, n_steps=2)]
-        with ThreadPoolExecutor(2) as ex:
+        specs_b = cluster_b_specs()
+        with ThreadPoolExecutor(3) as ex:
             fut_a = ex.submit(timed, "a", specs_a, a["pool"],
                               scheduler=Scheduler(a["policy"],
                                                   depth=a["depth"],
@@ -2585,11 +2928,11 @@ def phase_cluster(torch, dev, launches):
                               fault_plans={"j_a": FaultPlan([FaultSpec(
                                   CLUSTER_CRASH["point"], "crash",
                                   hit=1)])})
+            fut_b = ex.submit(timed, "b", specs_b, CLUSTER_B["pool"],
+                              scheduler=Scheduler("backfill", depth=8))
             res_a, segs_a = fut_a.result()
             res_c, segs_c = fut_c.result()
-        specs_b = cluster_b_specs()
-        res_b, segs_b = timed("b", specs_b, CLUSTER_B["pool"],
-                              scheduler=Scheduler("backfill", depth=8))
+            res_b, segs_b = fut_b.result()
     finally:
         shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
 
@@ -2638,8 +2981,8 @@ def phase_cluster(torch, dev, launches):
                            ("b", res_b, segs_b)):
         _print_cluster(tag, res, segs)
     seconds = time.perf_counter() - t_phase
-    print(f"  cluster: run A {wall['a']:.1f} s and beside it the crash case "
-          f"{wall['crash']:.1f} s, run B {wall['b']:.1f} s; phase "
+    print(f"  cluster: side by side run A {wall['a']:.1f} s, the crash "
+          f"case {wall['crash']:.1f} s, run B {wall['b']:.1f} s; phase "
           f"{seconds:.1f} s", flush=True)
 
     def summary(res, segs):
@@ -2943,7 +3286,97 @@ class Tee:
         return getattr(self.streams[0], name)
 
 
+# prctl(2): this process adopts the orphans among its descendants
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of the processes it starts: a
+    descendant whose parent ends (a rank of a cluster worker, a worker's
+    resource tracker) passes to this process rather than to init, where
+    ``stop_descendants`` finds it."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1,
+                                                0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants() -> dict:
+    """pid -> state letter of every process below this one, from
+    ``/proc/<pid>/stat``."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        parent[int(name)] = (int(ppid), state)
+    found, frontier = {}, [os.getpid()]
+    while frontier:
+        p = frontier.pop()
+        for pid, (ppid, state) in parent.items():
+            if ppid == p and pid not in found:
+                found[pid] = state
+                frontier.append(pid)
+    return found
+
+
+def stop_descendants(wait_s: float = 10.0) -> list:
+    """Stop every process this run started that is still there: first
+    multiprocessing's resource tracker, closed and waited for as the
+    interpreter closes it at exit, then each other live descendant by
+    SIGKILL; every child is reaped.  Returns ``"pid command"`` of each
+    process that was still running."""
+    import gc
+    from multiprocessing import resource_tracker
+    gc.collect()      # a queue's semaphores, unregistered as it goes
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    left = {}
+    t_end = time.monotonic() + wait_s
+    while True:
+        procs = descendants()
+        if not procs or time.monotonic() > t_end:
+            break
+        for pid, state in procs.items():
+            if state == "Z":
+                continue
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()
+                left.setdefault(pid, f"{pid} {cmd}")
+                os.kill(pid, signal.SIGKILL)
+            except (OSError, ProcessLookupError):
+                pass
+        for pid in procs:
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:     # not (yet) a child of this one
+                pass
+        time.sleep(0.05)
+    return list(left.values())
+
+
 def main() -> int:
+    adopt_orphans()
+    try:
+        return _main()
+    finally:
+        left = stop_descendants()
+        if left:
+            print(f"chip_smoke: stopped {len(left)} processes the run "
+                  f"left running: {left}", file=sys.stderr, flush=True)
+
+
+def _main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2981,8 +3414,18 @@ def run(torch) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     kernels = all_kernels()
+    seconds, t_last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = now - t_last[0]
+        t_last[0] = now
+
     phase_build(torch)
+    lap("build")
     table = phase_kernels(torch, dev)
+    lap("kernels")
 
     launches = Launches(kernels)
     for arch in ARCHS:
@@ -3004,13 +3447,22 @@ def run(torch) -> int:
                                  f"launched: {path}")
         del model
         torch.cuda.empty_cache()
+    lap("models")
     phase_train(torch, dev, launches)
+    lap("train")
+    phase_train_hybrid(torch, dev, launches)
+    lap("train_hybrid")
     phase_sync(torch, dev, launches)
+    lap("sync")
     ckpt_per_step = phase_ckpt(torch, dev, launches)
+    lap("ckpt")
     elastic_per_step, elastic_measured = phase_elastic(torch, dev, launches)
+    lap("elastic")
     cluster_launches, cluster_measured = phase_cluster(torch, dev,
                                                        launches)
+    lap("cluster")
     phase_replay(elastic_measured, cluster_measured)
+    lap("replay")
 
     sources = {"rmsnorm": ("src/repro_torch/kernels/rmsnorm/kernel.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -3041,6 +3493,9 @@ def run(torch) -> int:
                "launches_per_train_step":
                    launches.phases["train"][k.name]
                    // TRAIN["steps"],
+               "launches_per_hybrid_train_step":
+                   launches.phases["train_hybrid"][k.name]
+                   // HYBRID["steps"],
                "launches_per_sync_step_per_rank":
                    launches.phases["sync"][k.name]
                    // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"]),
@@ -3063,6 +3518,7 @@ def run(torch) -> int:
                                    "share_of_bound", "k1_route")}
                 for r in t["times"]]
         rows.append(row)
+    emit("seconds", **seconds, total=sum(seconds.values()))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

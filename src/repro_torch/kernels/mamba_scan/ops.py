@@ -2,7 +2,14 @@
 for CPU tensors.  Same interface as the JAX package's
 ``kernels/mamba_scan/ops.py::ssd``: the scan starts from a zero state.
 On the card f32 runs the scalar kernel and bf16 the tensor-core one (see
-``kernel.cu``)."""
+``kernel.cu``).
+
+On the card the kernel runs inside ``SSDFn``, with grad or without: its
+forward is the kernel, its backward the gradient of the plain version
+(``ssd_backward_ref``), as the JAX package's training path differentiates
+its XLA ``ssd_chunked`` and never its forward-only Pallas kernel.  A pybind
+call records no ``grad_fn``: without the Function, x, dt, A, B, C and the
+projections upstream would get no gradient, and no error."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -10,7 +17,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels._build import Kernel, extension
-from repro_torch.kernels.mamba_scan.ref import check_chunk, ssd_chunked
+from repro_torch.kernels.mamba_scan.ref import (check_chunk, ssd_backward_ref,
+                                                ssd_chunked)
 
 SSD = Kernel("ssd")
 
@@ -18,6 +26,28 @@ _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64)          # P
 STATE_DIMS = (16, 32, 64)     # N
 MAX_CHUNK = 256
+
+
+class SSDFn(torch.autograd.Function):
+    """Forward: the kernel, (y, final state).  Backward: autograd of the
+    plain version at the incoming gradients, from the saved x, dt, A, B and
+    C; an output whose gradient is None (the final state, on the training
+    path) takes no part in it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        y, state = extension().ssd(x, dt, A, B, C, chunk)
+        SSD.launches += 1
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        grads = ssd_backward_ref(*ctx.saved_tensors, gy, gstate,
+                                 chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -30,13 +60,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_chunked(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, dt, A, B, C)):
-        raise RuntimeError(
-            "the SSD scan kernel has no backward: its output would carry no "
-            "gradient.  Call it under torch.no_grad() on the card; the "
-            "plain version on CPU tensors is differentiable.  Training this "
-            "model on the card is ROADMAP.md queue 1 item 3")
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     check_chunk(S, chunk)
@@ -69,6 +92,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (x, B, C)):
         raise ValueError("ssd kernel needs x, B, C at 16-byte aligned "
                          "addresses (it copies rows 16 bytes at a time)")
-    y, state = extension().ssd(x, dt, A, B, C, chunk)
-    SSD.launches += 1
-    return y, state
+    return SSDFn.apply(x, dt, A, B, C, chunk)

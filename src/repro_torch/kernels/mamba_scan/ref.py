@@ -1,5 +1,6 @@
-"""Plain PyTorch SSD (Mamba2 scan): the CPU path, the CUDA kernel's oracle,
-the decode step and the token-by-token oracle of the tests.
+"""Plain PyTorch SSD (Mamba2 scan): the CPU path, the CUDA kernel's oracle
+and its backward, the decode step and the token-by-token oracle of the
+tests.
 
 Counterparts of ``repro/models/ssm.py``: ``ssd_chunked``, ``ssd_step`` and
 ``ssd_sequential_ref``, with the same shapes and the same f32 arithmetic:
@@ -95,6 +96,26 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          torch.exp(b_end.float()))
     y = (y_diag + y_off).reshape(Bt, S, H, P)
     return y.to(x.dtype), state
+
+
+def ssd_backward_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor,
+                     gy: Optional[torch.Tensor],
+                     gstate: Optional[torch.Tensor], *, chunk: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dB, dC) of ``ssd_chunked`` at the incoming gradients
+    ``gy`` of y and ``gstate`` of the final state (None: that output is
+    not differentiated): autograd of the plain version, recomputed.  It is
+    what the JAX package's training path differentiates (its Pallas kernel
+    is forward-only), and it builds the (Bt, n_chunks, H, Q, Q)
+    intermediates ``ssd_chunked`` does."""
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_()
+                       for t in (x, dt, A, B, C))
+        outs = ssd_chunked(*leaves, chunk=chunk)
+        pairs = [(o, g) for o, g in zip(outs, (gy, gstate)) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs], leaves,
+                                   [g for _, g in pairs])
 
 
 def ssd_step(state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,

@@ -93,10 +93,13 @@ def _gate_out(y, xh, z, p: Mamba, cfg: ArchConfig, *, kernels: bool):
 
 def mamba_apply(x, p: Mamba, cfg: ArchConfig, *,
                 kernels: bool = True) -> torch.Tensor:
-    """Full-sequence (prefill) Mamba2 block.  x: (B, S, D).
+    """Full-sequence (train / prefill) Mamba2 block.  x: (B, S, D).
 
     The scan takes chunks of ``min(chunk, S)`` tokens on both paths, as the
-    reference's forward does.
+    reference's forward does.  On a CUDA tensor with ``kernels`` it is the
+    SSD kernel, under autograd too (``SSDFn``: the backward is the plain
+    scan's gradient); the causal conv is plain PyTorch on every path, as it
+    is plain XLA in the reference.
     """
     s = cfg.ssm
     Bsz, S, D = x.shape

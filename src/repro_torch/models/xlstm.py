@@ -302,7 +302,7 @@ class XLSTMLM(nn.Module):
     def loss(self, batch):
         raise NotImplementedError(
             "training this family is not ported yet: ROADMAP.md queue 1 "
-            "item 3 (the hybrid's and the xLSTM's loss)")
+            "item 3 (the xLSTM's training)")
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, seq_len: int):

@@ -10,20 +10,27 @@ hybrid_attn_every), ``tail.<i>.{norm,mamba}``, ``shared_attn``, ``embed``
 
     init(generator)                       fill the weights from a seed
     forward_logits(tokens) -> logits      (B, S) -> (B, S, V)
+    loss(batch) -> (loss, metrics)        the training objective
     init_cache(batch_size, seq_len) -> cache
     decode_step(cache, tokens, pos) -> (logits, cache)
 
 Logits come out in the model's dtype (bf16 for a bf16 model), as the
 reference computes them with no f32 accumulation type; the dense model's
 are f32.  ``use_kernels`` (True by default) sends RMSNorm, prefill
-attention and the SSD scan of CUDA tensors to the hand-written kernels.
+attention and the SSD scan of CUDA tensors to the hand-written kernels,
+under autograd too (their backward is the gradient of the plain version).
+``remat`` (True by default) recomputes in the backward where the
+reference's ``jax.checkpoint`` does: each super-block (its mamba blocks and
+the shared attention's application) and each tail block; it acts only
+while grad mode is on, so serving is unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -58,7 +65,7 @@ class ZambaLM(nn.Module):
                 "ROADMAP.md queue 1 item 10 (dense variants)")
         self.cfg = cfg
         self.use_kernels = True
-        self.remat = remat        # read by the loss, not ported yet
+        self.remat = remat
         every = cfg.hybrid_attn_every
         self.n_super = cfg.n_layers // every
         self.n_tail = cfg.n_layers - self.n_super * every
@@ -100,26 +107,44 @@ class ZambaLM(nn.Module):
         return x + SSM.mamba_apply(h, blk.mamba, self.cfg,
                                    kernels=self.use_kernels)
 
+    def _super_block(self, x, group, positions):
+        """A group's mamba blocks, then the shared attention block."""
+        for blk in group:
+            x = self._mamba_block(x, blk)
+        return layer_apply(x, self.shared_attn, self.cfg,
+                           positions=positions, kernels=self.use_kernels)
+
     def forward_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens: (B, S) int -> logits (B, S, V) in the model's dtype."""
         cfg = self.cfg
         x = self.embed[tokens]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        remat = self.remat and torch.is_grad_enabled()
         for group in self.blocks:
-            for blk in group:
-                x = self._mamba_block(x, blk)
-            x = layer_apply(x, self.shared_attn, cfg, positions=positions,
-                            kernels=self.use_kernels)
+            if remat:
+                x = checkpoint(self._super_block, x, group, positions,
+                               use_reentrant=False)
+            else:
+                x = self._super_block(x, group, positions)
         for blk in self.tail:
-            x = self._mamba_block(x, blk)
+            if remat:
+                x = checkpoint(self._mamba_block, x, blk,
+                               use_reentrant=False)
+            else:
+                x = self._mamba_block(x, blk)
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels)
         return x @ self.embed.t()
 
-    def loss(self, batch):
-        raise NotImplementedError(
-            "training this family is not ported yet: ROADMAP.md queue 1 "
-            "item 3 (the hybrid's and the xLSTM's loss)")
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens and targets (B, S) int.  Returns (nll + z_loss,
+        {"nll", "z_loss", "aux"}), f32, from the model's-dtype logits as
+        the reference's; aux is 0."""
+        logits = self.forward_logits(batch["tokens"])
+        nll, zl = L.softmax_xent(logits, batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return nll + zl, {"nll": nll, "z_loss": zl, "aux": aux}
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, seq_len: int):

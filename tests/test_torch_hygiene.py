@@ -139,3 +139,46 @@ def test_unported_families_name_their_roadmap_item():
     for arch in _NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_config(arch)
+
+
+ORPHANS = """
+import multiprocessing as mp
+import subprocess
+import sys
+
+sys.path.insert(0, {repo!r})
+import chip_smoke
+
+
+def rank(q):
+    q.put(1)
+
+
+if __name__ == "__main__":
+    chip_smoke.adopt_orphans()
+    q = mp.get_context("spawn").Queue()
+    p = mp.get_context("spawn").Process(target=rank, args=(q,))
+    p.start()
+    q.get()
+    p.join()
+    del q
+    # a worker in a session of its own that leaves a child running
+    subprocess.run(["sh", "-c", "sleep 600 & exit 0"],
+                   start_new_session=True, check=True)
+    left = chip_smoke.stop_descendants()
+    print(len(left), "sleep 600" in " ".join(left),
+          len(chip_smoke.descendants()))
+"""
+
+
+def test_chip_smoke_stops_every_process_its_run_left(tmp_path):
+    """chip_smoke.py adopts the orphans of the processes it starts and, when
+    it ends, stops each one still running (here the child that a worker in
+    its own session left behind) and closes multiprocessing's resource
+    tracker, which a spawned rank started, so nothing outlives the run."""
+    script = tmp_path / "orphans.py"
+    script.write_text(ORPHANS.format(repo=REPO))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=60, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1", "True", "0"], out.stdout

@@ -32,6 +32,8 @@ from repro_torch.convert import params_from_jax, to_tensor
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_backward_ref,
                                                      attention_ref)
+from repro_torch.kernels.mamba_scan import ops as ssd_ops
+from repro_torch.kernels.mamba_scan.ref import ssd_chunked
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
 from repro_torch.models import layers as L
@@ -144,11 +146,13 @@ def test_model_loss_matches_jax(jax_side, dtype):
                                    atol=1e-9)
 
 
-def test_loss_of_hybrid_and_xlstm_is_not_ported():
-    for arch in ("zamba2-1.2b", "xlstm-125m"):
-        model = build_model(reduced_config(get_config(arch)), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model.loss({})
+def test_loss_of_xlstm_is_not_ported():
+    """The xLSTM's training is still to be ported (the hybrid's is held
+    against the reference in test_torch_zamba_train.py)."""
+    model = build_model(reduced_config(get_config("xlstm-125m")),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model.loss({})
 
 
 # --------------------------------------------------------------- optimizer
@@ -556,6 +560,10 @@ class _FakeExtension:
     def flash_attention(q, k, v, causal, softcap):
         return attention_ref(q, k, v, causal=causal, softcap=softcap)
 
+    @staticmethod
+    def ssd(x, dt, A, B, C, chunk):
+        return ssd_chunked(x, dt, A, B, C, chunk=chunk)
+
 
 def _grads(fn, *inputs):
     leaves = [t.detach().requires_grad_() for t in inputs]
@@ -565,16 +573,28 @@ def _grads(fn, *inputs):
     return out, torch.autograd.grad(out, leaves, g)
 
 
-@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "ssd"])
 def test_autograd_functions_match_the_plain_gradient(kernel, monkeypatch):
     """The Functions the card runs under autograd (forward: the kernel,
     stood in for here by the plain version; backward: the plain
     gradient) give the plain version's output and input gradients bitwise,
-    and count one launch per forward."""
+    and count one launch per forward.  The SSD scan's final state takes no
+    gradient here, as on the training path (its cotangent is None)."""
     monkeypatch.setattr(rms_ops, "extension", _FakeExtension)
     monkeypatch.setattr(fa_ops, "extension", _FakeExtension)
+    monkeypatch.setattr(ssd_ops, "extension", _FakeExtension)
     rng = np.random.default_rng(7)
-    if kernel == "rmsnorm":
+    if kernel == "ssd":
+        def t(*shape, dtype=torch.bfloat16):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dtype)
+        x, B, C = t(2, 32, 4, 32), t(2, 32, 1, 16), t(2, 32, 1, 16)
+        dt = torch.nn.functional.softplus(t(2, 32, 4, dtype=torch.float32))
+        A = -torch.exp(0.5 * t(4, dtype=torch.float32))
+        counter, inputs = ssd_ops.SSD, (x, dt, A, B, C)
+        fn = lambda *a: ssd_ops.SSDFn.apply(*a, 16)[0]  # noqa: E731
+        plain = lambda *a: ssd_chunked(*a, chunk=16)[0]  # noqa: E731
+    elif kernel == "rmsnorm":
         x = torch.from_numpy(rng.standard_normal((8, 64)).astype(
             np.float32)).bfloat16()
         w = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
@@ -667,8 +687,9 @@ def test_logits_function_backward_against_reference_vjp(scale):
 
 @pytest.mark.parametrize("kernel", ["ssd", "mlstm"])
 def test_cpu_ssd_and_mlstm_stay_differentiable(kernel):
-    """K3 and K4 refuse inputs that need grad on the card (they have no
-    backward); their CPU path, the plain version, stays differentiable."""
+    """K3 runs under autograd on the card (``SSDFn``) and K4 refuses
+    inputs that need grad there (it has no backward); on the CPU both are
+    the plain version, which stays differentiable."""
     rng = np.random.default_rng(9)
 
     def t(*shape, scale=1.0):
