@@ -28,13 +28,11 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                with L2 cold (its share of the bytes bound) and warm; every
                K1 case must launch the route its D, dtype and alignment
                give (``rmsnorm_route_for``), by the profiler's kernel names.
-               K1, K2 and K3 under autograd (forward the kernel, backward
-               the plain version's gradient) must give the plain version's
-               input gradients bitwise, at the serving shapes in f32 and
-               bf16; K4, which has no backward (its model's training is not
-               ported), must refuse inputs that need grad; and
-               ``torch.mm(..., out_dtype=f32)`` must still have no
-               derivative (the reason ``LogitsFn`` exists).
+               K1, K2, K3 and K4 under autograd (forward the kernel,
+               backward the plain version's gradient) must give the plain
+               version's input gradients bitwise, at the serving shapes in
+               f32 and bf16; and ``torch.mm(..., out_dtype=f32)`` must
+               still have no derivative (the reason ``LogitsFn`` exists).
 3. per model, llama3.2-1b (dense), zamba2-1.2b (hybrid: Mamba2 blocks and
    a shared attention block) and xlstm-125m (ssm: mLSTM and sLSTM blocks),
    each at its published widths and full depth, random weights from a
@@ -91,6 +89,36 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                card against the CPU, as the train phase's, each leaf's
                bound raised to ``NOISE_RATIO`` times the CPU's own bf16
                noise where that is larger.
+4c. train_xlstm -- xlstm-125m at full width and depth, f32 masters, remat
+               per super-block, random weights from a seed, 2 steps
+               (``XLSTM``: 8 x 1024 tokens, accum 1; AdamW without warmup,
+               ``SYNC_OPT``, so that step 1 follows an update), each run's
+               step 0 its loss-and-grad and AdamW called as
+               ``make_train_step``'s step calls them (the gradients kept),
+               step 1 ``make_train_step``'s step: the bf16 run with K1
+               and K4 under autograd (its loss-and-grad profiled), the
+               plain path's step-0 loss-and-grad in bf16, and the kernel
+               path's and the plain path's runs in f32, all from the same
+               weights and batches.  In bf16 the model's gradient is mostly
+               rounding noise, so the step-by-step gates are f32's: every
+               parameter within ``F32_LEAF_RTOL`` of the plain path's, and
+               each step's loss and grad norm within ``TRAIN_LOSS_ATOL`` /
+               ``TRAIN_GNORM_RTOL``.  In bf16: every parameter's gradient
+               finite and nonzero; each leaf of the reference's tree
+               within ``TRAIN_LEAF_GRAD_RTOL`` of the f32 gradient or
+               within ``NOISE_RATIO`` times the plain path's bf16
+               gradient's deviation from it where that is larger; step
+               0's loss and grad norm likewise; the loss
+               falling; K1 and K4 at 24 and 18 launches a step (the
+               forward and remat's recompute of every super-block; the
+               final norm is a LayerNorm).  Prints step s, tokens/s, peak
+               GiB, the model-FLOPs share, the profile (device ms by
+               kernel group, idle share), the sLSTM loop's share of the
+               step and K4's plain backward ms.  Then one f32 step of 4
+               layers (one super-block) at 2 x 512 tokens (two chunks) on
+               the card against the CPU (``XLSTM_CPU``): loss and grad norm
+               within ``CARD_VS_CPU_RTOL``, every parameter within
+               ``CARD_VS_CPU_LEAF_RTOL``.
 5. sync     -- the two-tier gradient sync: the single-rank step (accum x
                ranks microbatches) as the oracle, then 4 gloo ranks, each
                a process on this card (``sync_rank``; they send their
@@ -113,10 +141,10 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                rate beside the analytic SHM/NET model, each rank's peak
                memory, and the MIG mode (information only).
 6. ckpt     -- the sharded checkpoint at full width: llama3.2-1b's
-               widths at 8 layers (the train phase's batch and optimizer)
+               widths at 4 layers (the train phase's batch and optimizer)
                through ``Trainer`` with K1 and K2: two uninterrupted runs
                of 4 steps (the card's own spread), a run of 2 steps that
-               saves at its end (async, sharded, ≈ 10.5 GB), a restore of
+               saves at its end (async, sharded, ≈ 7.1 GB), a restore of
                that
                save timed alone, and a fresh ``Trainer`` resuming from it
                to step 4 (``CKPT``).  Gates: the restored state is the
@@ -200,8 +228,8 @@ bf16 logits miss it (the xLSTM's bf16 rounding noise exceeds it), the same
 comparison is made in f32 on the same weights and must pass whole, and the
 bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
-path's prefill and serve phases, and before the train and train_hybrid
-phases' steps (and in each rank before each step of the sync phase,
+path's prefill and serve phases, and before the train, train_hybrid and
+train_xlstm phases' steps (and in each rank before each step of the sync phase,
 before the ckpt phase's runs, in each rank before each elastic run and in
 each cluster segment's ranks), and read just after; the
 run fails if a kernel of a path was never launched on
@@ -305,6 +333,21 @@ def device_events(torch, fn, n: int):
 def device_kernels(torch, fn, n: int = 4) -> dict:
     """The device kernels one call of ``fn`` launches: name -> count."""
     return {ev.key[:96]: ev.count / n for ev in device_events(torch, fn, n)}
+
+
+def kernel_times(prof) -> dict:
+    """Device time (ms) and count of each device kernel of a finished
+    torch.profiler window, by name, read from its recorded events as they
+    are: ``key_averages`` first builds a Python object an event, which for
+    a training step's ~300k kernels takes about a minute."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        ms, n = out.get(ev.name(), (0.0, 0))
+        out[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
+    return out
 
 
 def profiled_ms(torch, fn, n: int = 20, match: str = ""):
@@ -504,29 +547,31 @@ def phase_kernels(torch, dev):
     n_ssd = ssd_cases(torch, dev, g, dts, table)
     n_mlstm = mlstm_cases(torch, dev, g, dts, table)
     grads = autograd_cases(torch, dev, g, dts)
-    refusals = no_backward_cases(torch, dev, g)
     emit("kernels", cases_rmsnorm=n_rmsnorm,
          cases_flash_attention=len(cases), cases_ssd=n_ssd,
-         cases_mlstm=n_mlstm, autograd=grads, no_backward=refusals,
+         cases_mlstm=n_mlstm, autograd=grads,
          logits_autograd=logits_needs_function(torch, dev),
          main_shapes=table)
     return table
 
 
 def autograd_cases(torch, dev, g, dts) -> dict:
-    """K1, K2 and K3 under autograd, as the training path runs them
-    (``RMSNormFn``, ``FlashAttentionFn``, ``SSDFn``: forward the kernel,
-    backward the gradient of the plain version), at the serving shapes in
-    f32 and bf16 (K3's at zamba2-1.2b's, chunk 256, the final state taking
-    no gradient as on the training path): each input's gradient under one
-    incoming gradient must equal, bitwise, the plain version's under
-    autograd (the backward recomputes it).  Returns per-case max abs
-    differences (all 0)."""
+    """K1, K2, K3 and K4 under autograd, as the training path runs them
+    (``RMSNormFn``, ``FlashAttentionFn``, ``SSDFn``, ``MLSTMFn``: forward
+    the kernel, backward the gradient of the plain version), at the
+    serving shapes in f32 and bf16 (K3's at zamba2-1.2b's and K4's at
+    xlstm-125m's, chunk 256, the final state or carry taking no gradient
+    as on the training path): each input's gradient under one incoming
+    gradient must equal, bitwise, the plain version's under autograd (the
+    backward recomputes it).  Returns per-case max abs differences (all
+    0)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba_scan.ops import ssd
     from repro_torch.kernels.mamba_scan.ref import ssd_chunked
+    from repro_torch.kernels.mlstm.ops import mlstm
+    from repro_torch.kernels.mlstm.ref import mlstm_chunked
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -547,6 +592,7 @@ def autograd_cases(torch, dev, g, dts) -> dict:
     cases += [("flash_attention", (4, 1024, H, Kv, 64), dname)
               for H, Kv in ((32, 8), (32, 32)) for dname in dts]
     cases += [("ssd", (4, 1024, 64, 64, 1, 64, 256), dname) for dname in dts]
+    cases += [("mlstm", (4, 1024, 4, 384, 256), dname) for dname in dts]
     for kernel, shape, dname in cases:
         dt = dts[dname]
         if kernel == "rmsnorm":
@@ -564,6 +610,16 @@ def autograd_cases(torch, dev, g, dts) -> dict:
                 torch.randn(Bt, T, G, N, generator=g, device=dev).to(dt))
             fn = lambda *a: ssd(*a, chunk=Q)[0]  # noqa: E731
             plain = lambda *a: ssd_chunked(*a, chunk=Q)[0]  # noqa: E731
+        elif kernel == "mlstm":
+            # mlstm_cases' inputs: i 2 normal, f 2 normal + 3, both f32
+            B, T, H, D, Q = shape
+            inputs = tuple(torch.randn(B, T, H, D, generator=g,
+                                       device=dev).to(dt) for _ in range(3))
+            inputs += (torch.randn(B, T, H, generator=g, device=dev) * 2,
+                       torch.randn(B, T, H, generator=g, device=dev) * 2
+                       + 3)
+            fn = lambda *a: mlstm(*a, chunk=Q)[0]  # noqa: E731
+            plain = lambda *a: mlstm_chunked(*a, chunk=Q)[0]  # noqa: E731
         else:
             B, S, H, Kv, D = shape
             inputs = tuple(torch.randn(B, S, h, D, generator=g,
@@ -581,31 +637,6 @@ def autograd_cases(torch, dev, g, dts) -> dict:
         print(f"  {name}: input gradients equal the plain version's",
               flush=True)
         out[f"{kernel} {shape} {dname}"] = max(diffs)
-    return out
-
-
-def no_backward_cases(torch, dev, g) -> dict:
-    """K4 has no backward (its model's training is not ported): on inputs
-    that need grad it must raise, not return an output with no
-    gradient."""
-    from repro_torch.kernels.mlstm.ops import mlstm
-    q = torch.randn(1, 64, 2, 16, generator=g, device=dev).bfloat16()
-    gate = torch.randn(1, 64, 2, generator=g, device=dev)
-    calls = {"mlstm": lambda t: mlstm(t, q, q, gate, gate, chunk=32)}
-    out = {}
-    for name, call in calls.items():
-        t = q.clone().requires_grad_()
-        try:
-            call(t)
-        except RuntimeError as e:
-            if "no backward" not in str(e):
-                raise
-            out[name] = "refused: " + str(e).split(":")[0]
-        else:
-            raise AssertionError(f"{name} ran on an input that needs grad; "
-                                 f"it has no backward")
-        with torch.no_grad():
-            call(t)        # without grad it runs
     return out
 
 
@@ -1148,7 +1179,6 @@ def phase_profile(torch, dev, model, cfg):
     kernels there are counted and timed apart, and each must be its vector
     route: the model's own calls (views of weights and activations
     included) keep to it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import make_prefill_step, make_serve_step
     rng = np.random.default_rng(SEED + 2)
@@ -1175,31 +1205,26 @@ def phase_profile(torch, dev, model, cfg):
     for name, fn, n in runs:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
         by_kernel, n_kernels, k1 = {}, 0, {"ms": 0.0, "kernels": 0}
-        for ev in prof.key_averages():
-            # device-side events only: a CPU op's device time repeats the
-            # time of the kernels it launched
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            us = ev.self_device_time_total
-            if "rmsnorm_" in ev.key:
-                if RMS_KERNELS["vector"] not in ev.key:
+        for key, (ms, count) in kernel_times(prof).items():
+            if "rmsnorm_" in key:
+                if RMS_KERNELS["vector"] not in key:
                     raise AssertionError(f"{cfg.arch_id} {name}: K1 took "
                                          f"another route than the vector "
-                                         f"one: {ev.key[:96]}")
-                k1["ms"] += us / 1e3 / n
-                k1["kernels"] += ev.count / n
-            if us > 0:
-                by_kernel[ev.key[:48]] = by_kernel.get(ev.key[:48], 0.0) \
-                    + us / 1e3 / n
-                n_kernels += ev.count
+                                         f"one: {key[:96]}")
+                k1["ms"] += ms / n
+                k1["kernels"] += count / n
+            by_kernel[key[:48]] = by_kernel.get(key[:48], 0.0) + ms / n
+            n_kernels += count
+        if not n_kernels:
+            raise AssertionError(f"{cfg.arch_id} {name}: the profiler saw "
+                                 f"no device kernel")
         device_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
         emit(f"{cfg.arch_id} profile_{name}",
@@ -1254,11 +1279,14 @@ def expected_train_launches(cfg, accum: int, remat: bool = True) -> dict:
     reference checkpoints each super-block (its mamba blocks and the
     shared attention's application) and each tail block, which again
     leaves out only the final norm: all of a prefill's SSD scans and
-    attentions and all its norms but one run twice."""
-    assert cfg.family in ("dense", "hybrid"), cfg.family
+    attentions and all its norms but one run twice.  ssm (xLSTM): the
+    reference checkpoints each super-block (its mLSTM blocks and its sLSTM
+    block) and each tail block; the final norm is a LayerNorm, no K1, so
+    every mLSTM cell and every RMSNorm of a prefill runs twice."""
     once = expected_launches(cfg)
-    again = ({k: n - (k == "rmsnorm") for k, n in once.items()} if remat
-             else {k: 0 for k in once})
+    last = {"dense": 1, "hybrid": 1, "ssm": 0}[cfg.family]
+    again = ({k: n - last * (k == "rmsnorm") for k, n in once.items()}
+             if remat else {k: 0 for k in once})
     return {k: accum * (once[k] + again[k]) for k in once}
 
 
@@ -1267,8 +1295,9 @@ def train_flops(cfg, n_params: int, tokens: int, batch: int,
     """Model FLOPs of one step: 6·N·tokens for the weights' products
     (forward and backward, the tied embedding counted once for the logits)
     and 3x the forward of each causal attention (QKᵀ and P·V) and, in the
-    hybrid, of each SSD scan (``ssd_cases``' count at the config's chunk);
-    remat's recompute is left out."""
+    hybrid, of each SSD scan (``ssd_cases``' count at the config's chunk)
+    and, in the xLSTM, of each chunked mLSTM cell (``mlstm_cases``' count
+    at chunk 256); remat's recompute is left out."""
     pairs = seq * (seq + 1) // 2
     n_attn = expected_launches(cfg)["flash_attention"]
     attn = 4 * cfg.resolved_head_dim * pairs * batch * cfg.n_heads * n_attn
@@ -1279,6 +1308,11 @@ def train_flops(cfg, n_params: int, tokens: int, batch: int,
         per_chunk = 2 * (Q * (Q + 1) // 2) * (N + P) + 4 * Q * P * N
         scan = per_chunk * batch * s.n_heads(cfg.d_model) * (seq // Q) \
             * cfg.n_layers
+    if cfg.family == "ssm":
+        Q, D = min(256, seq), 2 * cfg.d_model // cfg.n_heads
+        per_chunk = 4 * D * (Q * (Q + 1) // 2) + 4 * Q * D * D
+        scan = per_chunk * batch * cfg.n_heads * (seq // Q) \
+            * expected_launches(cfg)["mlstm"]
     return 6 * n_params * tokens + 3 * (attn + scan)
 
 
@@ -1290,6 +1324,8 @@ def kernel_group(name: str) -> str:
         return "K2 flash_attention"
     if "ssd_fwd" in name:
         return "K3 ssd"
+    if "mlstm_" in name:
+        return "K4 mlstm"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
         return "cuBLAS GEMM"
     if "softmax" in name.lower():
@@ -1307,7 +1343,6 @@ def profile_groups(torch, fn) -> dict:
     It traces the device alone: host ops add nothing to these numbers,
     and a training step's tens of thousands of them take the profiler
     seconds to sum."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1316,14 +1351,11 @@ def profile_groups(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, n_kernels, top = {}, 0, {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
-            continue
-        ms = ev.self_device_time_total / 1e3
-        grp = kernel_group(ev.key)
+    for key, (ms, count) in kernel_times(prof).items():
+        grp = kernel_group(key)
         groups[grp] = groups.get(grp, 0.0) + ms
-        n_kernels += ev.count
-        top[ev.key[:64]] = top.get(ev.key[:64], 0.0) + ms
+        n_kernels += count
+        top[key[:64]] = top.get(key[:64], 0.0) + ms
     busy = sum(groups.values())
     return dict(wall_ms=wall_ms,
                 device_ms=busy if busy else "not measured",
@@ -1620,9 +1652,10 @@ def phase_train(torch, dev, launches):
 
 
 def card_vs_cpu(torch, dev, cfg, *, batch_size: int = 2, seq: int = 128,
-                tag: str = "train") -> dict:
-    """One training step of ``cfg`` (published widths, few layers), bf16,
-    on the card with the kernels and on the CPU from the same weights:
+                tag: str = "train", dtype=None) -> dict:
+    """One training step of ``cfg`` (published widths, few layers), bf16
+    unless ``dtype`` says otherwise, on the card with the kernels and on
+    the CPU from the same weights:
     loss and grad norm within CARD_VS_CPU_RTOL.  Returns each parameter's
     gradient on the card against the CPU's, by norm (the dense
     embedding's is the one ``LogitsFn``'s backward makes on the card), for
@@ -1637,8 +1670,9 @@ def card_vs_cpu(torch, dev, cfg, *, batch_size: int = 2, seq: int = 128,
     batch = SyntheticCorpus(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq,
         global_batch=batch_size)).batch(0)
-    card = build_model(cfg, device=dev, seed=SEED)
-    cpu = build_model(cfg, device="cpu", seed=None)
+    dtype = dtype or torch.bfloat16
+    card = build_model(cfg, device=dev, seed=SEED, dtype=dtype)
+    cpu = build_model(cfg, device="cpu", seed=None, dtype=dtype)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     out, grads = {}, {}
     for name, model, d in (("card", card, dev),
@@ -1658,7 +1692,7 @@ def card_vs_cpu(torch, dev, cfg, *, batch_size: int = 2, seq: int = 128,
         torch, {n: g.cpu() for n, g in grads["card"].items()}, grads["cpu"],
         cfg.family)
     emit(f"{tag} card_vs_cpu", arch=cfg.arch_id, layers=cfg.n_layers,
-         batch=batch_size, seq=seq, **out, relative=rel,
+         batch=batch_size, seq=seq, dtype=str(dtype), **out, relative=rel,
          rtol=CARD_VS_CPU_RTOL, leaf_grad_rel_diff_embed=leaf["embed"],
          leaf_grad_rel_diff_top=top(leaf),
          stacked_leaf_grad_rel_diff_top=top(per_leaf))
@@ -1879,6 +1913,289 @@ def phase_train_hybrid(torch, dev, launches):
     del res
     laps["card_vs_cpu"] = time.perf_counter() - t0
     emit("train_hybrid seconds", **laps,
+         total=time.perf_counter() - t_phase)
+
+
+# the xLSTM's training runs: xlstm-125m at full width and depth, f32
+# masters, remat per super-block; 8 x 1024 tokens at accum 1 (the host's
+# cost of a microbatch, the plain sLSTM loop's launches, does not grow with
+# its rows, so one microbatch of 8 costs about half two of 4); AdamW
+# without warmup (SYNC_OPT), so that step 1 is held after an update.  In
+# bf16 the model's gradient is mostly rounding noise (PERF.md §6: on an
+# H100 the plain path's bf16 gradient lies up to 2.6 times a parameter's
+# gradient, by norm, from its f32 one), so the kernel path is held against
+# the plain path step by step in f32, and in bf16 against the f32 gradient
+# within the plain path's own bf16 noise
+XLSTM_ARCH = "xlstm-125m"
+XLSTM = dict(seq=1024, global_batch=8, accum=1, steps=2)
+# the card against the CPU, in f32: 4 layers are one super-block (3 mLSTM
+# blocks and the sLSTM block); 2 x 512 tokens are two chunks of 256, so
+# the cross-chunk carry runs on the CPU too
+XLSTM_CPU = dict(layers=4, batch=2, seq=512)
+
+
+def plain_mlstm_backward_ms(torch, dev, cfg, rows: int) -> float:
+    """Time of one call of K4's backward (``mlstm_backward_ref``: the plain
+    cell's gradient, recomputed) at a training microbatch of ``rows`` x
+    1024 tokens of the xLSTM ``cfg``, bf16 q, k, v, f32 gates, the carry
+    taking no gradient."""
+    from repro_torch.kernels.mlstm.ref import mlstm_backward_ref
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    S, H = XLSTM["seq"], cfg.n_heads
+    D = 2 * cfg.d_model // H
+    q, k, v, gh = (torch.randn(rows, S, H, D, generator=g,
+                               device=dev).bfloat16() for _ in range(4))
+    i_raw = torch.randn(rows, S, H, generator=g, device=dev) * 0.5
+    f_raw = torch.randn(rows, S, H, generator=g, device=dev) * 0.5 + 4
+    return cuda_ms(torch, lambda: mlstm_backward_ref(
+        q, k, v, i_raw, f_raw, gh, (None, None, None),
+        chunk=min(256, S)), iters=3)
+
+
+def slstm_loop_s(torch, dev, model, cfg, rows: int) -> dict:
+    """Wall s of the plain sLSTM loop (``slstm_scan``) of one super-block
+    at a training microbatch of ``rows`` x 1024 tokens, after the training
+    steps warmed it: its forward under grad and its backward,
+    synchronised.  With remat a step runs the forward twice (the
+    checkpointed forward, the recompute) and the backward once, in every
+    super-block."""
+    from repro_torch.models.xlstm import (_slstm_gates, slstm_scan,
+                                          slstm_zero_carry)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    blk = model.blocks.slstm[0]
+    x = torch.randn(rows, XLSTM["seq"], cfg.d_model, generator=g,
+                    device=dev).to(blk.w_in.dtype)
+    H = cfg.n_heads
+    r_w = blk.r_w.detach().requires_grad_()
+    xg = _slstm_gates(x, blk, cfg).detach().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs, _ = slstm_scan(xg, r_w, slstm_zero_carry(rows, H, cfg.d_model // H,
+                                                 dev))
+    torch.cuda.synchronize()
+    out = {"forward_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    torch.autograd.grad(hs, (xg, r_w), torch.ones_like(hs))
+    torch.cuda.synchronize()
+    out["backward_s"] = time.perf_counter() - t0
+    n_super = cfg.n_layers // cfg.slstm_every
+    out["per_step_s"] = n_super * (2 * out["forward_s"] + out["backward_s"])
+    return out
+
+
+def xlstm_run(torch, dev, model, ocfg, batches, *, profile: bool = False):
+    """A training run of ``model`` from its weights over ``batches``, as
+    ``make_train_step``'s "xla" step runs it: step 0 its two calls made
+    here, the loss-and-grad (profiled with ``profile``) and AdamW, so
+    that the gradients are kept; the later steps ``make_train_step``'s
+    step itself.  The params share the model's storage: the run moves
+    its weights.  Returns (``run_steps``' rows, step 0's gradients, the
+    profile or None)."""
+    from repro_torch import optim
+    from repro_torch.train import (batch_to, init_train_state,
+                                   make_loss_and_grad, make_train_step)
+    lg = make_loss_and_grad(model, accum=XLSTM["accum"])
+    step = make_train_step(model, ocfg, accum=XLSTM["accum"], device=dev)
+    params, opt_state = init_train_state(model, ocfg, seed=None)
+    b0, out, prof = batch_to(batches[0], dev), {}, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if profile:
+        prof = profile_groups(torch, lambda: out.update(lg=lg(params, b0)))
+    else:
+        out["lg"] = lg(params, b0)
+    loss, grads = out.pop("lg")
+    params, opt_state, m = optim.apply(ocfg, params, grads, opt_state)
+    torch.cuda.synchronize()
+    rows = [dict(loss=loss.item(), grad_norm=m["grad_norm"].item(),
+                 ms=(time.perf_counter() - t0) * 1e3, lr=m["lr"])]
+    more, params, opt_state = run_steps(torch, dev, step, params, opt_state,
+                                        batches[1:])
+    return rows + more, grads, prof
+
+
+def phase_train_xlstm(torch, dev, launches):
+    """xlstm-125m trained at full width on the card (f32 masters, remat
+    per super-block, accum 1): the bf16 run with K1 and K4 under
+    autograd, the plain path's first loss-and-grad in bf16, and in f32 the
+    kernel path's and the plain path's runs, all from the same weights and
+    batches; then one f32 step of 4 layers at the same widths on the card
+    against the CPU."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.train import batch_to, make_loss_and_grad
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    accum, steps = XLSTM["accum"], XLSTM["steps"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    m32 = f32_copy(torch, model, cfg, dev)
+    weights0 = {n: p.to("cpu", copy=True)
+                for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    laps = {"init": time.perf_counter() - t0}
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = optim.AdamWConfig(**SYNC_OPT)
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=XLSTM["seq"],
+        global_batch=XLSTM["global_batch"]))
+    batches = [corpus.batch(i) for i in range(steps)]
+    tokens = XLSTM["global_batch"] * XLSTM["seq"]
+
+    # the bf16 run on the kernel path: launches counted, peak memory, its
+    # first loss-and-grad profiled
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches.reset()
+    kernel_rows, g_kernel, prof_lg = xlstm_run(torch, dev, model, ocfg,
+                                               batches, profile=True)
+    launches.read("train_xlstm")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    laps["bf16_kernel_run"] = time.perf_counter() - t0
+    per_step = {k: n / steps
+                for k, n in launches.phases["train_xlstm"].items()}
+    want = expected_train_launches(cfg, accum)
+    if per_step != want:
+        raise AssertionError(f"train_xlstm: launches per step {per_step}, "
+                             f"the config gives {want}")
+    losses = [r["loss"] for r in kernel_rows]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_xlstm: the loss did not fall: {losses}")
+    for n, gk in g_kernel.items():
+        nk = gk.norm().item()
+        if not (math.isfinite(nk) and nk > 0 and torch.isfinite(gk).all()):
+            raise AssertionError(f"train_xlstm: leaf {n} has gradient norm "
+                                 f"{nk} on the kernel path")
+
+    # the plain path's first loss-and-grad in bf16, from the same weights
+    t0 = time.perf_counter()
+    load_weights(torch, model, weights0)
+    model.use_kernels = False
+    before = launches.snapshot()
+    loss_plain, g_plain = make_loss_and_grad(model, accum=accum)(
+        {n: p.detach() for n, p in model.named_parameters()},
+        batch_to(batches[0], dev))
+    if launches.snapshot() != before:
+        raise AssertionError("train_xlstm: the plain path launched a "
+                             "kernel")
+    model.use_kernels = True
+    laps["bf16_plain_step0"] = time.perf_counter() - t0
+
+    # f32: the kernel path's run (K4's scalar kernel), then the plain
+    # path's, each from the same weights
+    t0 = time.perf_counter()
+    f32_rows, g32k, _ = xlstm_run(torch, dev, m32, ocfg, batches)
+    laps["f32_kernel_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_weights(torch, m32, weights0)
+    m32.use_kernels = False
+    before = launches.snapshot()
+    f32_plain_rows, g32, _ = xlstm_run(torch, dev, m32, ocfg, batches)
+    if launches.snapshot() != before:
+        raise AssertionError("train_xlstm: the plain path launched a "
+                             "kernel")
+    laps["f32_plain_run"] = time.perf_counter() - t0
+    del m32, weights0
+
+    # f32: every leaf within F32_LEAF_RTOL, the loss and grad norm of both
+    # steps within TRAIN_LOSS_ATOL / TRAIN_GNORM_RTOL, of the plain path's
+    f32_dev, _ = leaf_deviations(torch, g32k, g32, cfg.family)
+    worst32 = max(f32_dev, key=f32_dev.get)
+    if f32_dev[worst32] > F32_LEAF_RTOL:
+        raise AssertionError(f"train_xlstm: in f32, leaf {worst32}'s "
+                             f"gradient lies {f32_dev[worst32]:.3e} (by "
+                             f"norm) from the plain path's")
+    dloss, dnorm, (f32_step_s, f32_plain_s) = hold_paths(
+        "train_xlstm f32", f32_rows, f32_plain_rows)
+    # bf16: each leaf of the reference's tree (a parameter over the blocks
+    # that stack it) lies from the f32 gradient within TRAIN_LEAF_GRAD_RTOL
+    # or NOISE_RATIO times the plain path's bf16 gradient does; step 0's
+    # loss and grad norm likewise.  By leaf, not by parameter: a block's 8
+    # if_bias values are too few draws for a ratio of two noise norms (on
+    # an H100, PERF.md §6: up to 1.46 for a parameter, 1.1 for a leaf)
+    per_param, per_leaf = leaf_deviations(torch, g_kernel, g32, cfg.family)
+    noise, noise_leaf = leaf_deviations(torch, g_plain, g32, cfg.family)
+    plain_dev, _ = leaf_deviations(torch, g_kernel, g_plain, cfg.family)
+    print(f"  train_xlstm: bf16 kernel path against the f32 gradient, by "
+          f"norm: worst parameters {top(per_param)}; worst leaves "
+          f"{top(per_leaf)}; the plain path's bf16 noise {top(noise)}; "
+          f"kernel against plain path in bf16 {top(plain_dev, 3)}; in f32 "
+          f"{top(f32_dev, 3)}", flush=True)
+    hold_leaves("train_xlstm", per_leaf, TRAIN_LEAF_GRAD_RTOL, noise_leaf)
+    step0 = {"kernel": kernel_rows[0],
+             "plain": dict(loss=loss_plain.item(),
+                           grad_norm=optim.global_norm(g_plain).item()),
+             "f32": f32_plain_rows[0]}
+    del g_kernel, g_plain, g32k, g32
+    for key, floor in (("loss", TRAIN_LOSS_ATOL),
+                       ("grad_norm", TRAIN_GNORM_RTOL)):
+        ref = step0["f32"][key]
+        scale = abs(ref) if key == "grad_norm" else 1.0
+        d = abs(step0["kernel"][key] - ref) / scale
+        bound = max(floor, NOISE_RATIO * abs(step0["plain"][key] - ref)
+                    / scale)
+        if d > bound:
+            raise AssertionError(f"train_xlstm: bf16 step 0's {key} lies "
+                                 f"{d:.3e} from the f32 run's, beyond "
+                                 f"{bound:.3e}: {step0}")
+    for i, (a, p) in enumerate(zip(kernel_rows, f32_rows)):
+        print(f"  train_xlstm bf16 step {i}: loss {a['loss']:.6f} (f32 "
+              f"{p['loss']:.6f})  grad_norm {a['grad_norm']:.6f} (f32 "
+              f"{p['grad_norm']:.6f})  {a['ms']:.1f} ms", flush=True)
+    step_s = statistics.median(r["ms"] for r in kernel_rows[1:]) / 1e3
+    flops = train_flops(cfg, n_params, tokens, XLSTM["global_batch"],
+                        XLSTM["seq"])
+    # K4's backward (the plain cell's gradient, recomputed) at the
+    # microbatch's shape, timed alone: once a forward call, accum x 9 a
+    # step; the sLSTM loop of one super-block, timed alone
+    t0 = time.perf_counter()
+    rows = XLSTM["global_batch"] // accum
+    mlstm_bwd_ms = plain_mlstm_backward_ms(torch, dev, cfg, rows)
+    mlstm_bwd_calls = accum * expected_launches(cfg)["mlstm"]
+    slstm = slstm_loop_s(torch, dev, model, cfg, rows)
+    laps["timed_apart"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    emit("train_xlstm", arch=XLSTM_ARCH, params=n_params, **XLSTM,
+         optimizer=SYNC_OPT, steps_kernel=kernel_rows,
+         steps_f32_kernel=f32_rows, steps_f32_plain=f32_plain_rows,
+         step0=step0, median_step_s=step_s, steps_per_s=1 / step_s,
+         tokens_per_s=tokens / step_s, f32_median_step_s=f32_step_s,
+         f32_plain_median_step_s=f32_plain_s, peak_memory_gib=peak_gib,
+         model_flops_per_step=flops,
+         model_flops_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+         flops_note="6*N*tokens + 3x the forward of the chunked mLSTM "
+                    "cells; remat's recompute left out",
+         f32_max_abs_dloss=max(dloss), f32_max_rel_dgrad_norm=max(dnorm),
+         leaf_grad_rel_diff_from_f32_top=top(per_param),
+         stacked_leaf_grad_rel_diff_from_f32_top=top(per_leaf),
+         bf16_noise_top=top(noise), stacked_bf16_noise_top=top(noise_leaf),
+         bf16_kernel_vs_plain_top=top(plain_dev),
+         f32_leaf_grad_rel_diff_top=top(f32_dev, 3),
+         f32_leaf_rtol=F32_LEAF_RTOL, launches_per_step=per_step,
+         plain_mlstm_backward_ms_per_call=mlstm_bwd_ms,
+         plain_mlstm_backward_ms_per_step=mlstm_bwd_ms * mlstm_bwd_calls,
+         slstm_loop=slstm, slstm_loop_share_of_step=slstm["per_step_s"]
+         / step_s, profile_loss_and_grad=prof_lg,
+         device_ms_over_unprofiled_step=(
+             prof_lg["device_ms"] / (step_s * 1e3)
+             if isinstance(prof_lg["device_ms"], float) else "not measured"),
+         profile_note="profiled: step 0's loss-and-grad, whose wall the "
+                      "profiler stretches; device_ms_over_unprofiled_step "
+                      "sets its device time against step 1's wall")
+    t0 = time.perf_counter()
+    cpu_cfg = dataclasses.replace(cfg, n_layers=XLSTM_CPU["layers"])
+    res = card_vs_cpu(torch, dev, cpu_cfg, batch_size=XLSTM_CPU["batch"],
+                      seq=XLSTM_CPU["seq"], tag="train_xlstm",
+                      dtype=torch.float32)
+    hold_leaves("train_xlstm card_vs_cpu", res["leaf"],
+                CARD_VS_CPU_LEAF_RTOL)
+    del res
+    laps["card_vs_cpu"] = time.perf_counter() - t0
+    emit("train_xlstm seconds", **laps,
          total=time.perf_counter() - t_phase)
 
 
@@ -2278,13 +2595,14 @@ def phase_sync(torch, dev, launches):
 # ---------------------------------------------------------------------------
 
 CKPT_ARCH = "llama3.2-1b"
-# full width at 8 of the 16 layers, the train phase's batch: a run of 4
+# full width at 4 of the 16 layers, the train phase's batch: a run of 4
 # steps (twice: the card's own spread), one of 2 steps that saves at its
 # end (async, sharded), and a resume from that save to 4.  The checkpoint
-# holds bf16 params and f32 masters and moments, ≈ 10.5 GB (≈ 17 GB at 16
+# holds bf16 params and f32 masters and moments, ≈ 7.1 GB (≈ 17 GB at 16
 # layers, whose save, restore and resume took the phase 91 s of the
-# script's 1200, bound by the host copy and the disk; PERF.md)
-CKPT = dict(layers=8, seq=1024, global_batch=8, accum=2, steps=4,
+# script's 1200, and 10.5 GB at 8, 58 s; bound by the host copy and the
+# disk; PERF.md)
+CKPT = dict(layers=4, seq=1024, global_batch=8, accum=2, steps=4,
             save_at=2)
 # everything the phases write lies under the gitignored chiprun_out/ and
 # is deleted when the phase ends
@@ -3452,6 +3770,8 @@ def run(torch) -> int:
     lap("train")
     phase_train_hybrid(torch, dev, launches)
     lap("train_hybrid")
+    phase_train_xlstm(torch, dev, launches)
+    lap("train_xlstm")
     phase_sync(torch, dev, launches)
     lap("sync")
     ckpt_per_step = phase_ckpt(torch, dev, launches)
@@ -3496,6 +3816,9 @@ def run(torch) -> int:
                "launches_per_hybrid_train_step":
                    launches.phases["train_hybrid"][k.name]
                    // HYBRID["steps"],
+               "launches_per_xlstm_train_step":
+                   launches.phases["train_xlstm"][k.name]
+                   // XLSTM["steps"],
                "launches_per_sync_step_per_rank":
                    launches.phases["sync"][k.name]
                    // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"]),

@@ -3,7 +3,15 @@ CPU tensors.  Same interface as the JAX package's
 ``kernels/mlstm/ops.py::mlstm``: the scan starts from C = n = 0 and
 m = -1e30.  On the card f32 runs the scalar kernel and bf16 the tensor-core
 ones (see ``kernel.cu``); one call counts as one launch of K4, whatever
-number of device kernels it issues."""
+number of device kernels it issues.
+
+On the card the kernel runs inside ``MLSTMFn``, with grad or without: its
+forward is the kernel, its backward the gradient of the plain version
+(``mlstm_backward_ref``), as the JAX package's training path
+differentiates its XLA ``mlstm_chunked`` and never its forward-only Pallas
+kernel.  A pybind call records no ``grad_fn``: without the Function, q, k,
+v, the gates and the projections upstream would get no gradient, and no
+error."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -11,13 +19,36 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels._build import Kernel, extension
-from repro_torch.kernels.mlstm.ref import Carry, check_chunk, mlstm_chunked
+from repro_torch.kernels.mlstm.ref import (Carry, check_chunk,
+                                          mlstm_backward_ref, mlstm_chunked)
 
 MLSTM = Kernel("mlstm")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 384)   # D
 MAX_CHUNK = 256
+
+
+class MLSTMFn(torch.autograd.Function):
+    """Forward: the kernel, (h, C, n, m).  Backward: autograd of the plain
+    version at the incoming gradients, from the saved q, k, v and gates; an
+    output whose gradient is None (the final carry, on the training path)
+    takes no part in it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_raw, f_raw, chunk):
+        ctx.save_for_backward(q, k, v, i_raw, f_raw)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        h, C, n, m = extension().mlstm(q, k, v, i_raw, f_raw, chunk)
+        MLSTM.launches += 1
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, gh, gC, gn, gm):
+        grads = mlstm_backward_ref(*ctx.saved_tensors, gh, (gC, gn, gm),
+                                   chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,13 +61,6 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_chunked(q, k, v, i_raw, f_raw, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm: unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, i_raw, f_raw)):
-        raise RuntimeError(
-            "the mLSTM kernel has no backward: its output would carry no "
-            "gradient.  Call it under torch.no_grad() on the card; the "
-            "plain version on CPU tensors is differentiable.  Training this "
-            "model on the card is ROADMAP.md queue 1 item 3")
     B, S, H, D = q.shape
     check_chunk(S, chunk)
     if chunk > MAX_CHUNK:
@@ -68,6 +92,5 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("mlstm kernel needs bf16 q, k, v at 16-byte "
                          "aligned addresses (it copies rows 16 bytes at a "
                          "time)")
-    h, C, n, m = extension().mlstm(q, k, v, i_raw, f_raw, chunk)
-    MLSTM.launches += 1
+    h, C, n, m = MLSTMFn.apply(q, k, v, i_raw, f_raw, chunk)
     return h, (C, n, m)

@@ -1,6 +1,6 @@
 """Plain PyTorch mLSTM (xLSTM's matrix-memory cell): the CPU path, the CUDA
-kernel's oracle, the decode step and the token-by-token oracle of the
-tests.
+kernel's oracle and its backward, the decode step and the token-by-token
+oracle of the tests.
 
 Counterparts of ``repro/models/xlstm.py``: ``mlstm_chunked``,
 ``mlstm_step`` and ``mlstm_sequential_ref``, with the same shapes and the
@@ -107,6 +107,27 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m0 = b[:, -1, :] + R
     h = torch.stack(hs, dim=1).reshape(B, S, H, D)
     return h.to(q.dtype), (C, n, m0)
+
+
+def mlstm_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       i_raw: torch.Tensor, f_raw: torch.Tensor,
+                       gh: Optional[torch.Tensor],
+                       gcarry: Tuple[Optional[torch.Tensor], ...], *,
+                       chunk: int) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, di_raw, df_raw) of ``mlstm_chunked`` at the incoming
+    gradients ``gh`` of h and ``gcarry`` of the final (C, n, m) (None: that
+    output is not differentiated): autograd of the plain version,
+    recomputed.  It is what the JAX package's training path differentiates
+    (its Pallas kernel is forward-only), and it builds the (B, H, Q, Q)
+    intermediates ``mlstm_chunked`` does, a chunk at a time."""
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_()
+                       for t in (q, k, v, i_raw, f_raw))
+        h, carry = mlstm_chunked(*leaves, chunk=chunk)
+        pairs = [(o, g) for o, g in zip((h, *carry), (gh, *gcarry))
+                 if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs], leaves,
+                                   [g for _, g in pairs])
 
 
 def mlstm_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,24 +8,30 @@ Parameters, named as the JAX tree un-stacked: ``blocks.mlstm.<i>.<j>.*``
 
     init(generator)                       fill the weights from a seed
     forward_logits(tokens) -> logits      (B, S) -> (B, S, V)
+    loss(batch) -> (loss, metrics)        the training objective
     init_cache(batch_size, seq_len) -> cache
     decode_step(cache, tokens, pos) -> (logits, cache)
 
 Logits come out in the model's dtype (bf16 for a bf16 model), as the
-reference computes them.  ``use_kernels`` (True by default) sends the
-output RMSNorms and the prefill's mLSTM cell of CUDA tensors to the
-hand-written kernels (K1, K4).  The block norms are the config's
-LayerNorm, plain PyTorch as in the reference; the sLSTM recurrence and the
-decode step's mLSTM cell are plain PyTorch too, as they are plain XLA in
-the reference.
+reference computes them with no f32 accumulation type.  ``use_kernels``
+(True by default) sends the output RMSNorms and the prefill's mLSTM cell
+of CUDA tensors to the hand-written kernels (K1, K4), under autograd too
+(their backward is the gradient of the plain version).  The block norms
+are the config's LayerNorm, plain PyTorch as in the reference; the sLSTM
+recurrence and the decode step's mLSTM cell are plain PyTorch too, as they
+are plain XLA in the reference.  ``remat`` (True by default) recomputes in
+the backward where the reference's ``jax.checkpoint`` does around a block:
+each super-block (its mLSTM blocks and its sLSTM block) and each tail
+block; it acts only while grad mode is on, so serving is unchanged.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mlstm.ops import mlstm
@@ -259,7 +265,7 @@ class XLSTMLM(nn.Module):
                 "ROADMAP.md queue 1 item 10 (dense variants)")
         self.cfg = cfg
         self.use_kernels = True
-        self.remat = remat        # read by the loss, not ported yet
+        self.remat = remat
         se = cfg.slstm_every
         self.n_super = cfg.n_layers // se if se else 0
         self.n_m_per_super = se - 1 if se else 0
@@ -285,24 +291,58 @@ class XLSTMLM(nn.Module):
         return self
 
     # ------------------------------------------------------------ forward
+    def _super_block(self, x, group, sblk: SLSTMBlock):
+        """A super-block: its mLSTM blocks, then its sLSTM block."""
+        for blk in group:
+            x = mlstm_block_apply(x, blk, self.cfg, kernels=self.use_kernels)
+        x, _ = slstm_block_apply(x, sblk, self.cfg, kernels=self.use_kernels)
+        return x
+
+    def _tail_block(self, x, blk: MLSTMBlock):
+        return mlstm_block_apply(x, blk, self.cfg, kernels=self.use_kernels)
+
     def forward_logits(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) int -> logits (B, S, V) in the model's dtype."""
-        cfg, kernels = self.cfg, self.use_kernels
+        """tokens: (B, S) int -> logits (B, S, V) in the model's dtype.
+
+        With remat under grad, each super-block and each tail block is
+        checkpointed whole, as the reference's ``jax.checkpoint`` of
+        ``super_body`` and of the tail's block.  The reference also
+        checkpoints its mLSTM chunk step and its sLSTM token step inside
+        their scans; those trade memory for recompute and change no value,
+        and are not checkpointed again here: one region a token would add
+        3,072 regions a microbatch at S 1024 to a loop whose cost is the
+        host's.  What a super-block's recompute holds instead is its sLSTM
+        loop's graph and, a chunk at a time, the plain mLSTM backward's
+        (B, H, Q, Q) f32 tiles: a training step of xlstm-125m at 8 x 1024
+        tokens peaks at 9.91 GiB on an H100, its f32 optimizer state
+        included (PERF.md)."""
+        cfg = self.cfg
         x = self.embed[tokens]
+        remat = self.remat and torch.is_grad_enabled()
         for group, sblk in zip(self.blocks.mlstm, self.blocks.slstm):
-            for blk in group:
-                x = mlstm_block_apply(x, blk, cfg, kernels=kernels)
-            x, _ = slstm_block_apply(x, sblk, cfg, kernels=kernels)
+            if remat:
+                x = checkpoint(self._super_block, x, group, sblk,
+                               use_reentrant=False)
+            else:
+                x = self._super_block(x, group, sblk)
         for blk in self.tail:
-            x = mlstm_block_apply(x, blk, cfg, kernels=kernels)
+            if remat:
+                x = checkpoint(self._tail_block, x, blk, use_reentrant=False)
+            else:
+                x = self._tail_block(x, blk)
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
-                         kernels=kernels)
+                         kernels=self.use_kernels)
         return x @ self.embed.t()
 
-    def loss(self, batch):
-        raise NotImplementedError(
-            "training this family is not ported yet: ROADMAP.md queue 1 "
-            "item 3 (the xLSTM's training)")
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens and targets (B, S) int.  Returns (nll + z_loss,
+        {"nll", "z_loss", "aux"}), f32, from the model's-dtype logits as
+        the reference's; aux is 0."""
+        logits = self.forward_logits(batch["tokens"])
+        nll, zl = L.softmax_xent(logits, batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return nll + zl, {"nll": nll, "z_loss": zl, "aux": aux}
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, seq_len: int):

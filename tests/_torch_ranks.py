@@ -178,11 +178,12 @@ def _run(spec, run, grid):
 
 def _trainer(spec, grid):
     """``Trainer`` on ``grid`` from the bridged weights, every step
-    logged."""
+    logged: ``spec["trainer_steps"]`` steps (3 by default)."""
     from repro_torch import optim, train
     from repro_torch.data import DataConfig
     model = _model(spec, torch.float32)
-    tcfg = train.TrainerConfig(n_steps=3, log_every=1, accum=spec["accum"],
+    tcfg = train.TrainerConfig(n_steps=spec.get("trainer_steps", 3),
+                               log_every=1, accum=spec["accum"],
                                cross_pod_mode="hier_bucketed_zero1")
     out = train.Trainer(model, optim.AdamWConfig(**spec["ocfg"]["a"]), tcfg,
                         DataConfig(**spec["data"]), device="cpu",

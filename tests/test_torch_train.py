@@ -34,6 +34,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_backward_ref,
                                                      attention_ref)
 from repro_torch.kernels.mamba_scan import ops as ssd_ops
 from repro_torch.kernels.mamba_scan.ref import ssd_chunked
+from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.mlstm.ref import mlstm_chunked
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
 from repro_torch.models import layers as L
@@ -147,12 +149,28 @@ def test_model_loss_matches_jax(jax_side, dtype):
 
 
 def test_loss_of_xlstm_is_not_ported():
-    """The xLSTM's training is still to be ported (the hybrid's is held
-    against the reference in test_torch_zamba_train.py)."""
+    """Named when the xLSTM's loss raised; it is ported now: at reduced
+    width, in f32 on the reference's weights and batch, ``XLSTMLM.loss``
+    returns the reference's keys and values (its gradients are held in
+    test_torch_xlstm_train.py, the hybrid's in test_torch_zamba_train.py)."""
+    jcfg = jax_reduced_config(jax_get_config("xlstm-125m"))
+    jmodel = jax_build_model(jcfg, remat=False)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          jmodel.init(jax.random.key(3)))
+    batch = _corpus_batches(jcfg.vocab_size, 1)[0]
+    jl, jm = jax.jit(jmodel.loss)(params, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
     model = build_model(reduced_config(get_config("xlstm-125m")),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.loss({})
+                        device="cpu", dtype=torch.float32, seed=None)
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
+                                          "ssm"))
+    with torch.no_grad():
+        tl, tm = model.loss(_torch_batch(batch))
+    assert set(tm) == set(jm) == {"nll", "z_loss", "aux"}
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    for key in tm:
+        np.testing.assert_allclose(tm[key].item(), float(jm[key]),
+                                   rtol=1e-5, atol=1e-9)
 
 
 # --------------------------------------------------------------- optimizer
@@ -564,6 +582,11 @@ class _FakeExtension:
     def ssd(x, dt, A, B, C, chunk):
         return ssd_chunked(x, dt, A, B, C, chunk=chunk)
 
+    @staticmethod
+    def mlstm(q, k, v, i_raw, f_raw, chunk):
+        h, (C, n, m) = mlstm_chunked(q, k, v, i_raw, f_raw, chunk=chunk)
+        return h, C, n, m
+
 
 def _grads(fn, *inputs):
     leaves = [t.detach().requires_grad_() for t in inputs]
@@ -573,18 +596,31 @@ def _grads(fn, *inputs):
     return out, torch.autograd.grad(out, leaves, g)
 
 
-@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "ssd"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "ssd",
+                                    "mlstm"])
 def test_autograd_functions_match_the_plain_gradient(kernel, monkeypatch):
     """The Functions the card runs under autograd (forward: the kernel,
     stood in for here by the plain version; backward: the plain
     gradient) give the plain version's output and input gradients bitwise,
-    and count one launch per forward.  The SSD scan's final state takes no
-    gradient here, as on the training path (its cotangent is None)."""
+    and count one launch per forward.  The SSD scan's final state and the
+    mLSTM's final carry take no gradient here, as on the training path
+    (their cotangents are None)."""
     monkeypatch.setattr(rms_ops, "extension", _FakeExtension)
     monkeypatch.setattr(fa_ops, "extension", _FakeExtension)
     monkeypatch.setattr(ssd_ops, "extension", _FakeExtension)
+    monkeypatch.setattr(mlstm_ops, "extension", _FakeExtension)
     rng = np.random.default_rng(7)
-    if kernel == "ssd":
+    if kernel == "mlstm":
+        def t(*shape, dtype=torch.bfloat16, shift=0.0):
+            return torch.from_numpy((rng.standard_normal(shape) + shift)
+                                    .astype(np.float32)).to(dtype)
+        q, k, v = (t(2, 32, 2, 16) for _ in range(3))
+        i_raw = t(2, 32, 2, dtype=torch.float32)
+        f_raw = t(2, 32, 2, dtype=torch.float32, shift=3.0)
+        counter, inputs = mlstm_ops.MLSTM, (q, k, v, i_raw, f_raw)
+        fn = lambda *a: mlstm_ops.MLSTMFn.apply(*a, 16)[0]  # noqa: E731
+        plain = lambda *a: mlstm_chunked(*a, chunk=16)[0]  # noqa: E731
+    elif kernel == "ssd":
         def t(*shape, dtype=torch.bfloat16):
             return torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dtype)
@@ -687,9 +723,9 @@ def test_logits_function_backward_against_reference_vjp(scale):
 
 @pytest.mark.parametrize("kernel", ["ssd", "mlstm"])
 def test_cpu_ssd_and_mlstm_stay_differentiable(kernel):
-    """K3 runs under autograd on the card (``SSDFn``) and K4 refuses
-    inputs that need grad there (it has no backward); on the CPU both are
-    the plain version, which stays differentiable."""
+    """K3 and K4 run under autograd on the card (``SSDFn``, ``MLSTMFn``,
+    their backward the plain version's gradient); on the CPU both are the
+    plain version, which stays differentiable."""
     rng = np.random.default_rng(9)
 
     def t(*shape, scale=1.0):

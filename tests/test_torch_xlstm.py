@@ -25,6 +25,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import xlstm as X
 from repro_torch.models.registry import build_model, get_config, \
     reduced_config
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "xlstm-125m"
 B, S = 2, 16

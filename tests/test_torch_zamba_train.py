@@ -44,6 +44,7 @@ from repro_torch.models.registry import build_model, get_config, \
     reduced_config
 from repro_torch.parallel.launch import run_ranks
 from tests import _torch_ranks as R
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "zamba2-1.2b"
 FAMILY = "hybrid"
