@@ -125,9 +125,10 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                numbers to this process, which alone prints), train
                llama3.2-1b's widths at 2 layers on a (pod 2, data 2) grid
                through ``hier_bucketed``, ``hier_bucketed_zero1``, zero1
-               with overlap, with int8 + error feedback, and with both (2
-               steps each, ``SYNC_RUNS``; AdamW without warmup,
-               ``SYNC_OPT``, so that step 0 updates the params).  Gates:
+               with overlap, with int8 + error feedback, and with both
+               (``SYNC_RUNS``: hier_bucketed 2 steps, the others 1; AdamW
+               without warmup, ``SYNC_OPT``, so that step 0 updates the
+               params).  Gates:
                every rank's params bitwise equal after every step;
                hier_bucketed's loss and
                grad norm within ``SYNC_BOUND`` of the oracle; zero1 bitwise
@@ -140,6 +141,28 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                and its split, the bytes over each tier and each tier's
                rate beside the analytic SHM/NET model, each rank's peak
                memory, and the MIG mode (information only).
+5b. tp      -- tensor parallelism over a grid's ``model`` axis: the
+               single-rank training steps as the oracle, then 4 gloo ranks
+               on the card (``tp_rank``) run llama3.2-1b with its heads,
+               ``ff`` columns and vocabulary rows split over ``model``
+               (``sharding.make_rules``): prefill (B 4, S 1024) and 8
+               decode steps at full width and depth on a (1, 4)
+               (data, model) grid, each rank's block of the logits held
+               against its single-rank step's to the logits' bound below;
+               then 2 ``xla`` training steps at full width and 4 layers
+               (``TP_TRAIN``: 8 x 512, accum 2, remat, AdamW without
+               warmup, both steps on batch 0) on (1, 4) and on (2, 2).
+               Gates: every rank's params and AdamW state bitwise equal
+               after every step (``state_fingerprint``); each step's loss
+               and grad norm within ``TRAIN_LOSS_ATOL`` /
+               ``TRAIN_GNORM_RTOL`` of the single rank's; the loss falling;
+               in f32 on the same weights (the f32 kernels) every
+               parameter's gradient on each grid within ``F32_LEAF_RTOL``
+               of the single rank's (by norm); K1 and K2 launched a rank
+               as the config gives, a prefill's, a decode step's (33 and
+               16, 33 and 0) and a training step's (34 and 16).  Prints
+               each step's s and its share in gloo, prefill s against the
+               single rank's, each rank's peak memory.
 6. ckpt     -- the sharded checkpoint at full width: llama3.2-1b's
                widths at 4 layers (the train phase's batch and optimizer)
                through ``Trainer`` with K1 and K2: two uninterrupted runs
@@ -162,8 +185,8 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                memory before the update went in place; it must complete,
                and prints its peak GiB a rank), then ``ElasticDriver`` on
                llama3.2-1b's widths at 1 layer (``ELASTIC``, for time): the
-               uninterrupted run, (2,2) -> (4,1) -> (1,4) -> (2,2) at steps
-               2, 3 and 4 of 5 (``ELASTIC_SCHEDULE``) and a drain cycle at
+               uninterrupted run, (2,2) -> (4,1) -> (1,4) at steps 2 and 3
+               of 4 (``ELASTIC_FULL_SCHEDULE``) and a drain cycle at
                step 2 of 3; then the reduced
                model in f32 (``ELASTIC_REDUCED``): a handoff against a
                drain cycle at the same step, and the job SIGKILLed by its
@@ -229,7 +252,8 @@ comparison is made in f32 on the same weights and must pass whole, and the
 bf16 pair must lie closer together than the bf16 plain logits lie to the
 f32 ones; all are reported.  Launch counts are set to 0 just before each
 path's prefill and serve phases, and before the train, train_hybrid and
-train_xlstm phases' steps (and in each rank before each step of the sync phase,
+train_xlstm phases' steps (and in each rank before each step of the sync
+phase, before the tp phase's prefills, decode steps and training steps,
 before the ckpt phase's runs, in each rank before each elastic run and in
 each cluster segment's ranks), and read just after; the
 run fails if a kernel of a path was never launched on
@@ -2217,15 +2241,21 @@ SYNC_GRIDS = {"22": ((2, 2), ("pod", "data")), "41": ((4, 1), ("pod", "data")),
 # modes (tests/test_bucketing.py:211-212)
 SYNC_BOUND = dict(rtol=1e-4, atol=1e-5)
 INT8_EF = dict(slow_compress_bits=8, slow_error_feedback=True)
+# hier_bucketed takes SYNC's 2 steps (held against the oracle after an
+# update); the runs held bitwise against another take 1, their params'
+# digests compared after its update (for the tp phase's time)
 SYNC_RUNS = {
     "hier_bucketed": dict(cross_pod_mode="hier_bucketed"),
-    "zero1": dict(cross_pod_mode="hier_bucketed_zero1"),
+    "zero1": dict(cross_pod_mode="hier_bucketed_zero1", steps=1),
     "zero1_overlap": dict(cross_pod_mode="hier_bucketed_zero1",
-                          overlap=True),
-    "zero1_int8_ef": dict(cross_pod_mode="hier_bucketed_zero1", **INT8_EF),
+                          overlap=True, steps=1),
+    "zero1_int8_ef": dict(cross_pod_mode="hier_bucketed_zero1", steps=1,
+                          **INT8_EF),
     "zero1_int8_ef_overlap": dict(cross_pod_mode="hier_bucketed_zero1",
-                                  overlap=True, **INT8_EF),
+                                  overlap=True, steps=1, **INT8_EF),
 }
+SYNC_RUN_STEPS = sum(kw.get("steps", SYNC["steps"])
+                     for kw in SYNC_RUNS.values())
 # the reduced model, f32, for the gates that need many steps or several
 # grids (the optimizers of tests/test_torch_sync_train.py)
 SYNC_REDUCED = dict(seq=64, global_batch=8, accum=2)
@@ -2491,12 +2521,15 @@ def phase_sync(torch, dev, launches):
     rel = np.abs(np.subtract(got, oracle)) / np.abs(oracle)
     np.testing.assert_allclose(got, oracle, **SYNC_BOUND,
                                err_msg="sync: hier_bucketed vs oracle")
-    # the bitwise invariants of the reference
+    # the bitwise invariants of the reference, over the steps both runs
+    # took
     for a, b in (("hier_bucketed", "zero1"), ("zero1", "zero1_overlap"),
                  ("zero1_int8_ef", "zero1_int8_ef_overlap")):
         for r in range(SYNC_RANKS):
             ra, rb = full[r][a], full[r][b]
-            if (losses(ra) != losses(rb) or digests(ra) != digests(rb)
+            n = min(len(ra["steps"]), len(rb["steps"]))
+            if (losses(ra)[:n] != losses(rb)[:n]
+                    or digests(ra)[:n] != digests(rb)[:n]
                     or ra.get("residual_digest") != rb.get(
                         "residual_digest")):
                 raise AssertionError(f"sync: {b} is not bitwise {a} on "
@@ -2535,12 +2568,13 @@ def phase_sync(torch, dev, launches):
                              f"{dev_ef.sum()} from f32, int8 alone "
                              f"{dev_int8.sum()}")
 
-    # the report: rank 0's median step of each full-width run, its split
+    # the report: rank 0's median step of each full-width run after its
+    # first (a one-step run's only step), its split
     report = {}
     for name, run in full[0].items():
         steps = run["steps"]
-        mid = sorted(steps[1:], key=lambda s: s["seconds"])[
-            (len(steps) - 2) // 2]
+        later = steps[1:] or steps
+        mid = sorted(later, key=lambda s: s["seconds"])[(len(later) - 1) // 2]
         secs = mid["stats"]["seconds"]
         split = {k: secs.get(k, 0.0) for k in SYNC_SPLIT}
         split["other"] = mid["seconds"] - sum(split.values())
@@ -2591,6 +2625,295 @@ def phase_sync(torch, dev, launches):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+# 4 gloo ranks on the one card run llama3.2-1b with its heads, ff columns
+# and vocabulary rows split over a (data, model) grid's model axis
+# (repro_torch.sharding.make_rules): prefill and decode at full width and
+# depth on (1, 4), and training at full width and 4 layers on (1, 4) and
+# (2, 2), each held against the single rank on the same weights
+TP_ARCH = "llama3.2-1b"
+TP_RANKS = 4
+TP_GRIDS = {"14": ((1, 4), ("data", "model")),
+            "22": ((2, 2), ("data", "model"))}
+TP_SERVE = dict(batch=4, seq=1024, runs=3, decode_steps=8, max_seq=64)
+# full width at 4 of 16 layers: 0.51 B params, 7.1 GB of bf16 params and
+# f32 masters, mu and nu a rank; both steps on global batch 0, so step 1's
+# loss, after a full update (SYNC_OPT: no warmup), must lie below step 0's
+TP_TRAIN = dict(layers=4, seq=512, global_batch=8, accum=2, steps=2)
+TP_DEADLINE_S = 600
+# the collectives' STATS keys: the seconds a step spends in gloo (its
+# copies to and from the host included)
+TP_GLOO = ("d2h", "fast all_reduce", "h2d")
+
+
+def tp_rank(rank: int, world: int) -> dict:
+    """One rank of the tp phase's gloo job, on the card: the (1, 4) grid's
+    prefill and decode steps, each held against this rank's single-rank
+    step on its block of the logits; the (1, 4) and (2, 2) grids' training
+    steps; their f32 gradients, which rank 0 holds against the single-rank
+    one.  Returns numbers for the parent, which alone prints."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels._build import all_kernels
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.parallel.collectives import STATS
+    from repro_torch.parallel.mesh import make_rank_grid
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    from repro_torch.train import (init_train_state, make_grid_loss_and_grad,
+                                   make_loss_and_grad, make_train_step)
+    from repro_torch import optim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = {k.name: k for k in all_kernels()}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    def synced(fn, *args):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0
+
+    grids = {g: make_rank_grid(*TP_GRIDS[g]) for g in TP_GRIDS}
+    out = {"rank": rank}
+    # -- serving, full width and depth, on (1, 4)
+    cfg = get_config(TP_ARCH)
+    model = build_model(cfg, device=dev, seed=SEED)
+    B, S = TP_SERVE["batch"], TP_SERVE["seq"]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)))
+    grid = grids["14"]
+    m = grid.axis("model")
+    cols = slice(m.index * cfg.vocab_size // m.size,
+                 (m.index + 1) * cfg.vocab_size // m.size)
+    prefill = make_prefill_step(model, device=dev, grid=grid)
+    single = make_prefill_step(model, device=dev)
+    prefill(tokens)
+    reset()
+    times = []
+    for _ in range(TP_SERVE["runs"]):
+        got, sec = synced(prefill, tokens)
+        times.append(sec)
+    per_prefill = {n: c / TP_SERVE["runs"] for n, c in counts().items()}
+    want, single_s = synced(single, tokens)
+    want = want[..., cols].contiguous()
+    out["prefill"] = dict(seconds=times, single_seconds=single_s,
+                          launches=per_prefill,
+                          shape=list(got.shape),
+                          finite=bool(torch.isfinite(got).all()),
+                          **hold_logits(torch, f"tp prefill, rank {rank}",
+                                        got, want))
+    del got, want
+    steps = TP_SERVE["decode_steps"]
+    serve = make_serve_step(model, device=dev, grid=grid)
+    cache = model.init_cache(B, TP_SERVE["max_seq"])
+    reset()
+    blocks, dtimes = [], []
+    for i in range(steps):
+        (logits, cache), sec = synced(serve, cache, tokens[:, i:i + 1], i)
+        blocks.append(logits)
+        dtimes.append(sec)
+    per_decode = {n: c / steps for n, c in counts().items()}
+    single_serve = make_serve_step(model, device=dev)
+    cache = model.init_cache(B, TP_SERVE["max_seq"])
+    wants = []
+    for i in range(steps):
+        logits, cache = single_serve(cache, tokens[:, i:i + 1], i)
+        wants.append(logits[..., cols])
+    out["decode"] = dict(seconds=dtimes, launches=per_decode,
+                         shape=list(blocks[0].shape),
+                         **hold_logits(torch, f"tp decode, rank {rank}",
+                                       torch.cat(blocks, 1),
+                                       torch.cat(wants, 1)))
+    del model, cache, blocks, wants, prefill, single, serve, single_serve
+    torch.cuda.empty_cache()
+    # -- training, full width at 4 layers, on (1, 4) and (2, 2)
+    tcfg = dataclasses.replace(cfg, n_layers=TP_TRAIN["layers"])
+    model = build_model(tcfg, device=dev, seed=None)
+    batch = sync_batches(torch, dev, cfg.vocab_size, TP_TRAIN, 1)[0]
+    ocfg = optim.AdamWConfig(**SYNC_OPT)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["train"] = {}
+    for g, grid in grids.items():
+        params, state = init_train_state(model, ocfg, seed=SEED, grid=grid)
+        step = make_train_step(model, ocfg, accum=TP_TRAIN["accum"],
+                               device=dev, grid=grid)
+        rows = []
+        for _ in range(TP_TRAIN["steps"]):
+            STATS.reset()
+            reset()
+            (params, state, met), sec = synced(step, params, state, batch)
+            rows.append(dict(loss=met["loss"].item(),
+                             grad_norm=met["grad_norm"].item(),
+                             seconds=sec, launches=counts(),
+                             stats=STATS.snapshot(),
+                             fingerprint=state_fingerprint(torch, params,
+                                                           state)))
+        out["train"][g] = rows
+        del params, state, step, met
+        torch.cuda.empty_cache()
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["card_free_gib"] = torch.cuda.mem_get_info(dev)[0] / 2 ** 30
+    # -- f32 gradients on the same weights against the single rank's
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    m32 = f32_copy(torch, model, tcfg, dev)
+    del model
+    torch.cuda.empty_cache()
+    p32 = {n: p.detach() for n, p in m32.named_parameters()}
+    grads = {}
+    for g, grid in grids.items():
+        loss, gr = make_grid_loss_and_grad(
+            m32, accum=TP_TRAIN["accum"], grid=grid)(p32, batch)
+        if rank == 0:
+            grads[g] = (loss.item(), gr)
+        del gr
+    if rank == 0:
+        loss, want = make_loss_and_grad(m32, accum=TP_TRAIN["accum"])(
+            p32, batch)
+        out["f32"] = {"loss": loss.item()}
+        for g, (gl, gr) in grads.items():
+            per_param, per_leaf = leaf_deviations(torch, gr, want, "dense")
+            out["f32"][g] = dict(loss=gl, per_param=per_param,
+                                 per_leaf=per_leaf)
+    return out
+
+
+def phase_tp(torch, dev, launches):
+    """Tensor parallelism on the card: the single-rank training steps (the
+    oracle) in this process, then 4 gloo ranks, each a process on this card
+    (``tp_rank``): prefill and decode of llama3.2-1b at full width and
+    depth on a (1, 4) (data, model) grid, its training at 4 layers on
+    (1, 4) and (2, 2); the gates; each step's seconds, its share in gloo
+    and each rank's peak memory."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.parallel.launch import run_ranks
+    from repro_torch.train import init_train_state, make_train_step
+    t_phase = time.perf_counter()
+    cfg = get_config(TP_ARCH)
+    tcfg = dataclasses.replace(cfg, n_layers=TP_TRAIN["layers"])
+    model = build_model(tcfg, device=dev, seed=None)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = sync_batches(torch, dev, cfg.vocab_size, TP_TRAIN, 1)[0]
+    ocfg = optim.AdamWConfig(**SYNC_OPT)
+    step = make_train_step(model, ocfg, accum=TP_TRAIN["accum"], device=dev)
+    params, state = init_train_state(model, ocfg, seed=SEED)
+    oracle = []
+    for _ in range(TP_TRAIN["steps"]):
+        params, state, m = step(params, state, batch)
+        oracle.append((m["loss"].item(), m["grad_norm"].item()))
+    del model, params, state, step, m
+    torch.cuda.empty_cache()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    res = run_ranks(tp_rank, TP_RANKS, deadline_s=TP_DEADLINE_S,
+                    timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+
+    # serving: every rank's block held (inside the rank) and launched as a
+    # prefill and a decode step of the model give
+    per_prefill = expected_launches(cfg)
+    per_decode = dict(per_prefill, flash_attention=0)
+    V = cfg.vocab_size // TP_GRIDS["14"][0][1]
+    for r in res:
+        if r["prefill"]["launches"] != per_prefill or \
+                r["decode"]["launches"] != per_decode:
+            raise AssertionError(
+                f"tp: rank {r['rank']} launched {r['prefill']['launches']} "
+                f"a prefill, {r['decode']['launches']} a decode step; the "
+                f"config gives {per_prefill}, {per_decode}")
+        if r["prefill"]["shape"] != [TP_SERVE["batch"], TP_SERVE["seq"], V] \
+                or not r["prefill"]["finite"]:
+            raise AssertionError(f"tp: rank {r['rank']}'s prefill block "
+                                 f"{r['prefill']['shape']}")
+    # training: every rank's state bitwise the others' after every step,
+    # loss and grad norm against the single rank, the loss falling, the
+    # launches
+    want = expected_train_launches(tcfg, TP_TRAIN["accum"])
+    report = {}
+    for g in TP_GRIDS:
+        runs = [r["train"][g] for r in res]
+        for r, run in enumerate(runs):
+            for s, row in enumerate(run):
+                if row["fingerprint"] != runs[0][s]["fingerprint"] or \
+                        row["loss"] != runs[0][s]["loss"]:
+                    raise AssertionError(f"tp {g}: rank {r}'s state after "
+                                         f"step {s} differs from rank 0's")
+                if row["launches"] != want:
+                    raise AssertionError(
+                        f"tp {g}: rank {r} launched {row['launches']} in "
+                        f"step {s}, the config gives {want}")
+        got = [(row["loss"], row["grad_norm"]) for row in runs[0]]
+        for s, ((lg, gg), (lo, go)) in enumerate(zip(got, oracle)):
+            if abs(lg - lo) > TRAIN_LOSS_ATOL or \
+                    abs(gg - go) > TRAIN_GNORM_RTOL * abs(go):
+                raise AssertionError(
+                    f"tp {g} step {s}: loss {lg}, grad norm {gg}; the "
+                    f"single rank's {lo}, {go}")
+        if not got[-1][0] < got[0][0]:
+            raise AssertionError(f"tp {g}: the loss did not fall: {got}")
+        rows = []
+        for row in runs[0]:
+            gloo = sum(row["stats"]["seconds"].get(k, 0.0) for k in TP_GLOO)
+            rows.append(dict(seconds=row["seconds"], gloo_s=gloo,
+                             gloo_share=gloo / row["seconds"],
+                             bytes={k: v for k, v in
+                                    row["stats"]["bytes"].items() if v},
+                             calls=row["stats"]["calls"]))
+        report[g] = dict(loss=[x[0] for x in got],
+                         grad_norm=[x[1] for x in got], steps=rows,
+                         tokens_per_s=TP_TRAIN["global_batch"]
+                         * TP_TRAIN["seq"] / rows[-1]["seconds"])
+        print(f"  tp {g}: steps " + ", ".join(
+            f"{x['seconds']:.3f} s ({x['gloo_share']:.1%} gloo)"
+            for x in rows) + f"; loss {report[g]['loss']}, grad norm "
+            f"{report[g]['grad_norm']}; single rank {oracle}", flush=True)
+    # f32: every leaf's gradient on each grid against the single rank's
+    f32 = res[0]["f32"]
+    for g in TP_GRIDS:
+        hold_leaves(f"tp {g} f32", f32[g]["per_param"], F32_LEAF_RTOL)
+    launches.phases["tp"] = {
+        k: sum(row["launches"][k] for r in res for g in TP_GRIDS
+               for row in r["train"][g]) for k in want}
+    launches.phases["tp serve"] = {
+        k: int(sum(r["prefill"]["launches"][k] * TP_SERVE["runs"]
+                   + r["decode"]["launches"][k] * TP_SERVE["decode_steps"]
+                   for r in res)) for k in want}
+    p = res[0]["prefill"]
+    print(f"  tp prefill (1, 4): {min(p['seconds']):.4f} s "
+          f"(single rank {p['single_seconds']:.4f} s); decode step "
+          f"{statistics.median(res[0]['decode']['seconds']) * 1e3:.2f} ms; "
+          f"peak GiB a rank {[round(r['peak_memory_gib'], 2) for r in res]}",
+          flush=True)
+    emit("tp", arch=TP_ARCH, params=n_params, ranks=TP_RANKS,
+         grids=TP_GRIDS, serve=TP_SERVE, train=TP_TRAIN, optimizer=SYNC_OPT,
+         seconds=time.perf_counter() - t_phase, ranks_seconds=ranks_s,
+         prefill={k: v for k, v in res[0]["prefill"].items()},
+         prefill_tokens_per_s=TP_SERVE["batch"] * TP_SERVE["seq"]
+         / min(p["seconds"]),
+         decode={k: v for k, v in res[0]["decode"].items()},
+         oracle=oracle, runs=report,
+         f32_loss={g: f32[g]["loss"] for g in TP_GRIDS},
+         f32_single_loss=f32["loss"],
+         f32_worst_leaf={g: top(f32[g]["per_leaf"], 3) for g in TP_GRIDS},
+         peak_memory_gib=[r["peak_memory_gib"] for r in res],
+         card_free_gib=[r["card_free_gib"] for r in res],
+         launches_per_step_per_rank=want,
+         launches_per_prefill=per_prefill, launches_per_decode=per_decode)
+
+
+# ---------------------------------------------------------------------------
 # checkpoint and elastic handoff
 # ---------------------------------------------------------------------------
 
@@ -2617,18 +2940,21 @@ ELASTIC_RANKS = 4
 # the old, that took ≈ 19.5 GiB a rank and ran the card out of memory
 # (PERF.md); the in-place update lets it fit, which the probe shows with
 # one step on (4,1) at 2 layers, while the schedule stays at 1 layer for
-# time.  (2,2) -> (4,1) -> (1,4) -> (2,2) at steps 2, 3 and 4 of 5 (a
-# step of the deterministic reduce over gloo takes 8-12 s at these widths:
+# time.  (2,2) -> (4,1) -> (1,4) at steps 2 and 3 of 4 (a step of the
+# deterministic reduce over gloo takes 8-13 s at these widths:
 # tests/test_fault_matrix.py's steps 2, 4 and 6 of 8 took the phase 370 s
-# of the script's 1200), the drain cycle at step 2 of 3.  A reconfiguration
+# of the script's 1200; the third handoff of ELASTIC_SCHEDULE, back to
+# (2,2) at step 4 of 5, is run by the reduced kill-and-resume alone, for
+# the tp phase's time), the drain cycle at step 2 of 3.  A reconfiguration
 # is held at step 2 or later: TRAIN_OPT's step 0 has a learning rate of 0,
 # so the state restored at step 1 would still be the init's; and each run
 # keeps step 1 a steady step, the one whose time a first step on a new
 # grid is measured against (``compile_s``, the replay's recompile)
-ELASTIC = dict(layers=1, seq=512, global_batch=8, accum=2, steps=5,
+ELASTIC = dict(layers=1, seq=512, global_batch=8, accum=2, steps=4,
                bucket_bytes=32 << 20)
 ELASTIC_PROBE = dict(layers=2, shape=(4, 1), steps=1)
 ELASTIC_SCHEDULE = ((2, (4, 1)), (3, (1, 4)), (4, (2, 2)))
+ELASTIC_FULL_SCHEDULE = ELASTIC_SCHEDULE[:2]
 # the reduced model in f32: a handoff against a drain cycle at one step,
 # and the kill-and-resume, whose relaunch replays 6 steps and 2 handoffs
 ELASTIC_REDUCED = dict(seq=64, global_batch=8, accum=2, steps=8,
@@ -2878,7 +3204,7 @@ def elastic_rank(rank: int, world: int, part: str) -> dict:
     out["full"] = _driver_runs(torch, dev, model, {
         "uninterrupted": dict(schedule=(), steps=full_steps,
                               base="full_ref"),
-        "handoff": dict(schedule=ELASTIC_SCHEDULE, steps=full_steps,
+        "handoff": dict(schedule=ELASTIC_FULL_SCHEDULE, steps=full_steps,
                         base="full_handoff"),
         "drain": dict(schedule=ELASTIC_DRAIN, mode="drain",
                       steps=ELASTIC_DRAIN[-1][0] + 1, base="full_drain")},
@@ -2918,7 +3244,7 @@ def phase_elastic(torch, dev, launches):
     handoff's commit window resumes from the previous commit and
     continues bitwise.  Returns rank 0's launches a step at full width,
     as counted, and rank 0's full-width measurements by run (the
-    handoffs of ``ELASTIC_SCHEDULE`` under "handoff", the drain cycle
+    handoffs of ``ELASTIC_FULL_SCHEDULE`` under "handoff", the drain cycle
     under "drain"), which the replay phase reads."""
     import dataclasses
     import shutil
@@ -3007,7 +3333,7 @@ def phase_elastic(torch, dev, launches):
                 check_launches(f"{part} {name}", r, run, want[part])
     full0 = res[0]["full"]
     if [tuple(m["to_shape"]) for m in full0["handoff"]["measurements"]] \
-            != [m for _, m in ELASTIC_SCHEDULE]:
+            != [m for _, m in ELASTIC_FULL_SCHEDULE]:
         raise AssertionError("elastic: the handoffs did not run as "
                              "scheduled")
     kill_step = ELASTIC_KILL[2]
@@ -3054,7 +3380,8 @@ def phase_elastic(torch, dev, launches):
                      if run["measurements"]}
               for part in ("full", "reduced")}
     emit("elastic", arch=ELASTIC_ARCH, ranks=ELASTIC_RANKS, **ELASTIC,
-         schedule=ELASTIC_SCHEDULE, drain=ELASTIC_DRAIN,
+         schedule=ELASTIC_FULL_SCHEDULE, kill_schedule=ELASTIC_SCHEDULE,
+         drain=ELASTIC_DRAIN,
          reduced=ELASTIC_REDUCED, kill=ELASTIC_KILL, optimizer=TRAIN_OPT,
          disk_free_gb=free_gb, seconds=time.perf_counter() - t_phase,
          main_s=main_s, kill_and_resume_s=kill_s,
@@ -3774,6 +4101,8 @@ def run(torch) -> int:
     lap("train_xlstm")
     phase_sync(torch, dev, launches)
     lap("sync")
+    phase_tp(torch, dev, launches)
+    lap("tp")
     ckpt_per_step = phase_ckpt(torch, dev, launches)
     lap("ckpt")
     elastic_per_step, elastic_measured = phase_elastic(torch, dev, launches)
@@ -3821,7 +4150,10 @@ def run(torch) -> int:
                    // XLSTM["steps"],
                "launches_per_sync_step_per_rank":
                    launches.phases["sync"][k.name]
-                   // (SYNC_RANKS * len(SYNC_RUNS) * SYNC["steps"]),
+                   // (SYNC_RANKS * SYNC_RUN_STEPS),
+               "launches_per_tp_step_per_rank":
+                   launches.phases["tp"][k.name]
+                   // (TP_RANKS * len(TP_GRIDS) * TP_TRAIN["steps"]),
                "launches_per_ckpt_step": ckpt_per_step[k.name],
                "launches_per_elastic_step_per_rank":
                    elastic_per_step[k.name],

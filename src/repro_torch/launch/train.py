@@ -1,7 +1,8 @@
 """Training launcher of the port:
 ``python -m repro_torch.launch.train --arch llama3.2-1b [--steps N]
 [--batch B] [--seq S] [--accum A] [--lr LR] [--full-config]
-[--device cuda|cpu] [--data-parallel N] [--cross-pod-mode MODE]
+[--device cuda|cpu] [--data-parallel N] [--model-parallel M]
+[--cross-pod-mode MODE]
 [--bucket-mb MB] [--overlap] [--slow-compress-bits 0|8|16]
 [--error-feedback] [--deterministic-reduce] [--ckpt-dir DIR]
 [--resume | --no-resume] [--max-restore-retries K] [--fallback-on-corrupt]
@@ -15,6 +16,13 @@ size, as the reference launcher.  ``--data-parallel N`` spawns N ranks of a
 gloo job on a ``(data,)`` grid (the reference's ``(data, model)`` mesh with
 model 1; all ranks share the one card, or the CPU), each running its own
 ``Trainer`` on its rows of the global batch; rank 0's lines are printed.
+``--model-parallel M`` (with ``--data-parallel D``) spawns D·M ranks on a
+``(D, M)`` ``(data, model)`` grid, as the reference builds its mesh: the
+``xla`` step under ``sharding.make_rules``, the dense model
+tensor-parallel over ``model`` (its heads, ``ff`` columns and vocabulary
+rows), params and AdamW state whole on every rank.  The manual-sync modes
+and ``--reconfig-at`` need a grid without a ``model`` axis, and the
+hybrid's and the xLSTM's tensor parallelism is not ported.
 The ``Trainer`` commits a checkpoint every 50 steps to ``--ckpt-dir`` and
 resumes from its latest committed step unless ``--no-resume``.
 
@@ -33,9 +41,11 @@ import tempfile
 
 from repro_torch import optim
 from repro_torch.data import DataConfig
-from repro_torch.models.registry import (ARCH_IDS, build_model, get_config,
-                                         reduced_config)
-from repro_torch.train import CROSS_POD_MODES, Trainer, TrainerConfig
+from repro_torch.models.registry import (ARCH_IDS, TENSOR_PARALLEL_FAMILIES,
+                                         TENSOR_PARALLEL_ITEM, build_model,
+                                         get_config, reduced_config)
+from repro_torch.train import (CROSS_POD_MODES, MANUAL_SYNC_MODES, Trainer,
+                               TrainerConfig)
 
 
 def parse_args(argv=None):
@@ -117,9 +127,26 @@ def parse_args(argv=None):
                     help="pod axis of the initial (pod, data) "
                          "factorization for --reconfig-at runs")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        ap.error("--model-parallel above 1 is not ported: the port's rank "
-                 "grids have no parameter axes (ROADMAP.md queue 1 item 10)")
+    if args.model_parallel < 1:
+        ap.error("--model-parallel must be >= 1")
+    if args.model_parallel > 1:
+        if not args.data_parallel:
+            ap.error("--model-parallel needs --data-parallel (the data "
+                     "axis of the (data, model) grid)")
+        if args.reconfig_at:
+            ap.error("--reconfig-at hands off (pod, data) grids; it takes "
+                     "no --model-parallel")
+        if args.cross_pod_mode in MANUAL_SYNC_MODES:
+            ap.error(f"manual gradient-sync modes support (pod, data) "
+                     f"meshes only; --cross-pod-mode "
+                     f"{args.cross_pod_mode} with --model-parallel "
+                     f"{args.model_parallel} (use cross_pod_mode='xla' for "
+                     f"tensor-parallel meshes)")
+        family = get_config(args.arch).family
+        if family not in TENSOR_PARALLEL_FAMILIES:
+            ap.error(f"--model-parallel above 1: tensor parallelism of "
+                     f"{args.arch} ({family}) is not ported yet: "
+                     f"ROADMAP.md {TENSOR_PARALLEL_ITEM}")
     # the recovery knobs act at restore time; with --no-resume there is
     # no restore, so accepting them would silently do nothing
     if not args.resume and args.fallback_on_corrupt:
@@ -242,7 +269,12 @@ def train_rank(rank: int, world: int, args) -> list:
     """One rank's training run; returns its history."""
     from repro_torch.parallel.mesh import make_rank_grid
     cfg, model = _model(args)
-    grid = make_rank_grid((world,), ("data",)) if world > 1 else None
+    grid = None
+    if args.model_parallel > 1:
+        grid = make_rank_grid((args.data_parallel, args.model_parallel),
+                              ("data", "model"))
+    elif world > 1:
+        grid = make_rank_grid((world,), ("data",))
     trainer = Trainer(
         model, _ocfg(args),
         TrainerConfig(n_steps=args.steps, ckpt_every=50,
@@ -280,8 +312,9 @@ def main(argv=None):
                  else elastic_rank(0, 1, args, schedule))
         print("\n".join(lines))
         return
-    if args.data_parallel > 1:
-        history = _spawn(train_rank, args.data_parallel, args)
+    n = max(args.data_parallel, 1) * args.model_parallel
+    if n > 1:
+        history = _spawn(train_rank, n, args)
     else:
         history = train_rank(0, 1, args)
     for h in history:

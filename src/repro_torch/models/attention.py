@@ -9,7 +9,7 @@ too, not a Pallas kernel.  MLA waits for a later slice.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +18,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import layers as L
+from repro_torch.parallel.tensor import copy_to, reduce_from, replicated
+from repro_torch.sharding import MeshRules, Part, part, tensor_axes
 
 
 def _local_partial_softmax(q, k, v, valid, *, chunk: int = 1024,
@@ -93,13 +95,54 @@ class GQA(nn.Module):
             w.copy_(L.dense_init(generator, *w.shape, dtype=w.dtype))
 
 
-def _qkv(x, p: GQA, cfg: ArchConfig):
+def _kv_range(heads: Part, cfg: ArchConfig) -> Tuple[int, int]:
+    """The key/value heads [k0, k1) that the query heads of ``heads``
+    read."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    return heads.lo // G, (heads.hi - 1) // G + 1
+
+
+def _kv_for_heads(k, v, heads: Part, cfg: ArchConfig):
+    """k, v (B, S, k1-k0, hd) of :func:`_kv_range` laid out for the rank's
+    query heads: as they are when each of them serves the same number of
+    consecutive query heads; else one key/value head per query head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    k0, k1 = _kv_range(heads, cfg)
+    if k1 - k0 == 1 or (heads.lo % G == 0 and heads.hi % G == 0):
+        return k, v
+    idx = torch.tensor([h // G - k0 for h in range(heads.lo, heads.hi)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _heads(cfg: ArchConfig, rules: Optional[MeshRules]) -> Part:
+    return part(cfg.n_heads, "heads", rules)
+
+
+def _qkv(x, p: GQA, cfg: ArchConfig, heads: Part, tp=()):
+    """q of the rank's query heads and k, v of the key/value heads they
+    read, (B, S, heads, hd); every head when ``heads`` is whole."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
-    return (q.reshape(B, S, cfg.n_heads, hd),
-            k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    if heads.n == 1:
+        q = x @ replicated(p.wq, tp)
+        k, v = x @ replicated(p.wk, tp), x @ replicated(p.wv, tp)
+    else:
+        k0, k1 = _kv_range(heads, cfg)
+        q = x @ p.wq[:, heads.lo * hd:heads.hi * hd]
+        k, v = x @ p.wk[:, k0 * hd:k1 * hd], x @ p.wv[:, k0 * hd:k1 * hd]
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
+
+
+def _out(o, p: GQA, cfg: ArchConfig, heads: Part, tp=()):
+    """o (B, S, heads, hd) through ``wo``: the rank's rows of it, the
+    partial outputs summed over the split's axes."""
+    o = o.reshape(o.shape[0], o.shape[1], -1)
+    if heads.n == 1:
+        return o @ replicated(p.wo, tp)
+    hd = cfg.resolved_head_dim
+    return reduce_from(o @ p.wo[heads.lo * hd:heads.hi * hd], heads.axes)
 
 
 def _rope_dims(cfg: ArchConfig) -> int:
@@ -108,14 +151,19 @@ def _rope_dims(cfg: ArchConfig) -> int:
 
 
 def gqa_apply(x, p: GQA, cfg: ArchConfig, *, positions: torch.Tensor,
-              kernels: bool = True) -> torch.Tensor:
+              kernels: bool = True,
+              rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Causal prefill attention.  x: (B,S,D); positions: (S,)."""
-    q, k, v = _qkv(x, p, cfg)
+    heads, tp = _heads(cfg, rules), tensor_axes(rules)
+    x = copy_to(x, heads.axes)
+    q, k, v = _qkv(x, p, cfg, heads, tp)
     rd = _rope_dims(cfg)
     if rd:
         cos, sin = L.rope_angles(positions, rd, cfg.rope_theta)
         q = L.apply_rope(q, cos, sin, rd)
         k = L.apply_rope(k, cos, sin, rd)
+    if heads.n > 1:
+        k, v = _kv_for_heads(k, v, heads, cfg)
     if kernels and x.is_cuda:
         o = flash_attention(q, k, v, causal=True, softcap=cfg.logit_softcap)
     elif q.shape[1] * k.shape[1] <= 1024 * 1024:
@@ -123,7 +171,7 @@ def gqa_apply(x, p: GQA, cfg: ArchConfig, *, positions: torch.Tensor,
     else:
         o = L.blocked_attention(q, k, v, causal=True,
                                 softcap=cfg.logit_softcap)
-    return o.reshape(x.shape[0], x.shape[1], -1) @ p.wo
+    return _out(o, p, cfg, heads, tp)
 
 
 def gqa_make_cache(cfg: ArchConfig, batch: int, seq: int, n_layers: int, *,
@@ -135,14 +183,22 @@ def gqa_make_cache(cfg: ArchConfig, batch: int, seq: int, n_layers: int, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def gqa_decode(x, p: GQA, cfg: ArchConfig, k_cache, v_cache, pos: int):
+def gqa_decode(x, p: GQA, cfg: ArchConfig, k_cache, v_cache, pos: int, *,
+               rules: Optional[MeshRules] = None):
     """x: (B,1,D); caches (B,S,Kv,hd); pos: index of the new token.
 
     Writes the new K/V entry into the caches in place (the JAX function
     returns updated copies; in place saves a cache copy per layer and step)
-    and returns (out, k_cache, v_cache).
+    and returns (out, k_cache, v_cache).  Under rules that split ``heads``
+    the caches stay whole (``kv_heads`` and ``kv_seq`` map to nothing by
+    default): every rank writes every key/value head, and its query heads
+    attend to the ones they read.
     """
-    q, k, v = _qkv(x, p, cfg)
+    heads = _heads(cfg, rules)
+    B, hd = x.shape[0], cfg.resolved_head_dim
+    q = (x @ p.wq[:, heads.lo * hd:heads.hi * hd]).reshape(B, 1, -1, hd)
+    k = (x @ p.wk).reshape(B, 1, -1, hd)
+    v = (x @ p.wv).reshape(B, 1, -1, hd)
     rd = _rope_dims(cfg)
     if rd:
         posv = torch.tensor([pos], device=x.device)
@@ -151,6 +207,9 @@ def gqa_decode(x, p: GQA, cfg: ArchConfig, k_cache, v_cache, pos: int):
         k = L.apply_rope(k, cos, sin, rd)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    o = sharded_decode_attention(q, k_cache, v_cache, pos,
-                                 softcap=cfg.logit_softcap)
-    return o.reshape(x.shape[0], 1, -1) @ p.wo, k_cache, v_cache
+    kc, vc = k_cache, v_cache
+    if heads.n > 1:
+        k0, k1 = _kv_range(heads, cfg)
+        kc, vc = _kv_for_heads(kc[:, :, k0:k1], vc[:, :, k0:k1], heads, cfg)
+    o = sharded_decode_attention(q, kc, vc, pos, softcap=cfg.logit_softcap)
+    return _out(o, p, cfg, heads), k_cache, v_cache

@@ -21,6 +21,9 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF, gqa_scores,
                                                      attention_ref)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.parallel import collectives as PX
+from repro_torch.parallel.tensor import copy_to, reduce_from, replicated
+from repro_torch.sharding import MeshRules, Part, part, tensor_axes
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -111,12 +114,15 @@ def make_norm(d: int, kind: str, *,
 
 
 def norm_apply(x: torch.Tensor, p: Union[RMSNorm, LayerNorm], kind: str,
-               eps: float, *, kernels: bool = True) -> torch.Tensor:
+               eps: float, *, kernels: bool = True,
+               rules: Optional[MeshRules] = None) -> torch.Tensor:
     """RMSNorm (the kernel on CUDA tensors unless ``kernels`` is off) or
-    LayerNorm (plain), as the config's ``norm`` says."""
+    LayerNorm (plain), as the config's ``norm`` says.  The rules leave
+    ``norm`` whole: every rank of a tensor-parallel grid runs it whole."""
+    tp = tensor_axes(rules)
     if kind == "rmsnorm":
-        return rmsnorm(x, p.w, eps, kernels=kernels)
-    return layernorm(x, p.w, p.b, eps)
+        return rmsnorm(x, replicated(p.w, tp), eps, kernels=kernels)
+    return layernorm(x, replicated(p.w, tp), replicated(p.b, tp), eps)
 
 
 @torch.no_grad()
@@ -243,13 +249,27 @@ class MLP(nn.Module):
         self.w_down.copy_(dense_init(generator, d_ff, d_model, dtype=dtype))
 
 
-def mlp_apply(x: torch.Tensor, p: MLP, act: str) -> torch.Tensor:
-    up = x @ p.w_up
+def mlp_apply(x: torch.Tensor, p: MLP, act: str, *,
+              rules: Optional[MeshRules] = None) -> torch.Tensor:
+    """The MLP; where the rules split ``ff`` (the reference's ``h`` over
+    ``ff``), the rank's columns of ``w_gate`` and ``w_up`` and its rows of
+    ``w_down`` (column- then row-parallel), their partial sums added over
+    the split's axes."""
+    ff = part(p.w_up.shape[1], "ff", rules)
+    if ff.n > 1:
+        x = copy_to(x, ff.axes)
+        w_up, w_down = p.w_up[:, ff.slice], p.w_down[ff.slice]
+        w_gate = p.w_gate[:, ff.slice] if act == "silu" else None
+    else:
+        tp = tensor_axes(rules)
+        w_up, w_down = replicated(p.w_up, tp), replicated(p.w_down, tp)
+        w_gate = replicated(p.w_gate, tp) if act == "silu" else None
+    up = x @ w_up
     if act == "silu":
-        h = F.silu(x @ p.w_gate) * up
+        h = F.silu(x @ w_gate) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p.w_down
+    return reduce_from(h @ w_down, ff.axes)
 
 
 # ---------------------------------------------------------------------------
@@ -257,16 +277,34 @@ def mlp_apply(x: torch.Tensor, p: MLP, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
-                 z_loss: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
+                 z_loss: float = 1e-4, *, vocab: Optional[Part] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (B,S,V) any dtype; targets (B,S) int.  Returns the means of
-    (nll, z_loss * lse²), f32."""
+    (nll, z_loss * lse²), f32.
+
+    ``vocab``, a split vocabulary (``sharding.part``), makes it
+    vocab-parallel: ``logits`` are the rank's columns ``vocab.slice``; the
+    max is the ``pmax`` of the ranks' (detached) maxima, the exp-sums and
+    the gold logit are summed over the split's axes (``reduce_from``), and
+    nothing gathers the whole logits."""
     lf = logits.float()
+    axes = vocab.axes if vocab is not None else ()
     # the shift is detached on BOTH sides: subtracting a detached m but
     # adding back a live one leaks an extra +1 into the argmax logit's
     # gradient (d lse/dl = softmax + one_hot(argmax))
     m = lf.max(dim=-1, keepdim=True).values.detach()
-    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if axes:
+        m = PX.pmax(m, axes)
+    lse = torch.log(reduce_from(torch.exp(lf - m).sum(dim=-1), axes)) \
+        + m[..., 0]
+    t = targets.long()
+    if axes:
+        t = t - vocab.lo
+        inside = (t >= 0) & (t < lf.shape[-1])
+        gold = torch.gather(lf, -1, t.clamp(0, lf.shape[-1] - 1)[..., None])
+        gold = reduce_from(torch.where(inside, gold[..., 0], 0.0), axes)
+    else:
+        gold = torch.gather(lf, -1, t[..., None])[..., 0]
     return (lse - gold).mean(), (z_loss * lse.square()).mean()
 
 

@@ -12,6 +12,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.xlstm import XLSTMLM
 from repro_torch.models.zamba import ZambaLM
+from repro_torch.parallel.mesh import axes_size
+from repro_torch.sharding import (MeshRules, batch_axes, make_rules,
+                                  tensor_axes)
 
 _CONFIG_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
@@ -34,6 +37,11 @@ _NOT_PORTED = {
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
+
+# the families whose layers compute their share under tensor-parallel rules
+TENSOR_PARALLEL_FAMILIES = ("dense",)
+# the ROADMAP.md item that ports the others' tensor parallelism
+TENSOR_PARALLEL_ITEM = "queue 1 item 15"
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -88,6 +96,51 @@ def check_on_device(model: torch.nn.Module, device: torch.device) -> None:
     if found.type != device.type:
         raise ValueError(f"model lies on {found}, entry point asked for "
                          f"{device}")
+
+
+# the logical axes no model of the port splits yet, and the ROADMAP.md
+# item that ports each
+_UNSPLIT = {"kv_seq": "queue 1 item 9 (the sequence-sharded decode)",
+            "seq": "queue 1 item 16 (Megatron-SP)"}
+
+
+def check_rules(model: torch.nn.Module, rules) -> None:
+    """Refuse rules that split a layer over a grid axis (``sharding.
+    tensor_axes``) for a model whose tensor parallelism is not ported,
+    rules that split an axis no model of the port splits, and rules that
+    map nothing to a grid axis of more than one rank: each would run whole
+    on every rank what the grid splits."""
+    if rules is None or rules.mesh is None:
+        return
+    family = model.cfg.family
+    tp = tensor_axes(rules)
+    if family not in TENSOR_PARALLEL_FAMILIES and tp:
+        raise NotImplementedError(
+            f"tensor parallelism of the {family!r} family "
+            f"({model.cfg.arch_id}) is not ported yet: ROADMAP.md "
+            f"{TENSOR_PARALLEL_ITEM}")
+    for name, item in _UNSPLIT.items():
+        if axes_size(rules.mesh, rules.rules.get(name)) > 1:
+            raise NotImplementedError(
+                f"rules split {name!r} over {rules.rules[name]!r}; no "
+                f"model of the port splits it yet: ROADMAP.md {item}")
+    used = set(batch_axes(rules)) | {a.name for a in tp}
+    idle = [a for a in rules.mesh.axis_names
+            if rules.mesh.shape[a] > 1 and a not in used]
+    if idle:
+        raise ValueError(
+            f"no rule maps the batch or a layer to grid axes {idle} of "
+            f"{dict(rules.mesh.shape)}: every rank along them would "
+            f"compute the same")
+
+
+def grid_rules(model: torch.nn.Module, grid) -> Optional[MeshRules]:
+    """The rules an entry point runs ``model`` under on ``grid``, as the
+    reference's launcher builds them (``sharding.make_rules(grid)``), and
+    checked (:func:`check_rules`); None without a grid."""
+    rules = make_rules(grid) if grid is not None else None
+    check_rules(model, rules)
+    return rules
 
 
 def build_model(cfg: ArchConfig, *, device=None,

@@ -18,10 +18,20 @@ plain PyTorch path, which the checks use as their reference on the card.
 each layer's activations in the backward (``torch.utils.checkpoint``, the
 counterpart of ``jax.checkpoint`` on the reference's scanned layer); it
 acts only while grad mode is on, so serving is unchanged.
+
+Under rules that split ``heads``, ``ff`` and ``vocab`` over a grid's
+``model`` axis (``repro_torch.sharding``; an entry point sets them with
+``use_rules``), each rank computes its share of every layer's attention
+and MLP and its rows of the tied embedding's logits, which stay the rank's
+columns: ``forward_logits`` and ``decode_step`` return (B, S, V / M) and
+``loss`` is vocab-parallel.  The residual stream, the norms and the token
+embedding's gather are whole on every rank.  The rules are read once, at
+the entry of each method, and passed down, so remat's recompute sees the
+same ones.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +40,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.parallel.tensor import copy_to, replicated
+from repro_torch.sharding import MeshRules, current_rules, part, tensor_axes
 
 
 class Block(nn.Module):
@@ -44,26 +56,30 @@ class Block(nn.Module):
 
 
 def layer_apply(x, p: Block, cfg: ArchConfig, *, positions,
-                kernels: bool = True) -> torch.Tensor:
+                kernels: bool = True,
+                rules: Optional[MeshRules] = None) -> torch.Tensor:
     h = L.norm_apply(x, p.attn_norm, cfg.norm, cfg.norm_eps,
-                     kernels=kernels)
-    x = x + A.gqa_apply(h, p.attn, cfg, positions=positions, kernels=kernels)
+                     kernels=kernels, rules=rules)
+    x = x + A.gqa_apply(h, p.attn, cfg, positions=positions, kernels=kernels,
+                        rules=rules)
     h2 = L.norm_apply(x, p.ffn_norm, cfg.norm, cfg.norm_eps,
-                     kernels=kernels)
-    return x + L.mlp_apply(h2, p.ffn, cfg.act)
+                      kernels=kernels, rules=rules)
+    return x + L.mlp_apply(h2, p.ffn, cfg.act, rules=rules)
 
 
 def layer_decode(x, p: Block, cfg: ArchConfig, k_cache, v_cache, pos: int,
-                 *, kernels: bool = True) -> torch.Tensor:
+                 *, kernels: bool = True,
+                 rules: Optional[MeshRules] = None) -> torch.Tensor:
     """One-token step of a block; writes its K/V entry into the caches
     (B, S, Kv, hd) in place."""
     h = L.norm_apply(x, p.attn_norm, cfg.norm, cfg.norm_eps,
-                     kernels=kernels)
-    a, _, _ = A.gqa_decode(h, p.attn, cfg, k_cache, v_cache, pos)
+                     kernels=kernels, rules=rules)
+    a, _, _ = A.gqa_decode(h, p.attn, cfg, k_cache, v_cache, pos,
+                           rules=rules)
     x = x + a
     h2 = L.norm_apply(x, p.ffn_norm, cfg.norm, cfg.norm_eps,
-                     kernels=kernels)
-    return x + L.mlp_apply(h2, p.ffn, cfg.act)
+                      kernels=kernels, rules=rules)
+    return x + L.mlp_apply(h2, p.ffn, cfg.act, rules=rules)
 
 
 class LogitsFn(torch.autograd.Function):
@@ -125,24 +141,29 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ forward
     def forward_logits(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) int -> logits (B, S, V) f32."""
+        """tokens: (B, S) int -> logits (B, S, V) f32 (the rank's vocab
+        columns under rules that split ``vocab``)."""
         cfg = self.cfg
+        rules = current_rules()
         # the embedding is gathered through f32, as the JAX forward does
-        x = self.embed.float()[tokens].to(self.embed.dtype)
+        embed = replicated(self.embed, tensor_axes(rules))
+        x = embed.float()[tokens].to(self.embed.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
                 x = checkpoint(layer_apply, x, blk, cfg, positions=positions,
-                               kernels=self.use_kernels, use_reentrant=False)
+                               kernels=self.use_kernels, rules=rules,
+                               use_reentrant=False)
             else:
                 x = layer_apply(x, blk, cfg, positions=positions,
-                                kernels=self.use_kernels)
+                                kernels=self.use_kernels, rules=rules)
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
-                         kernels=self.use_kernels)
-        return self._logits(x)
+                         kernels=self.use_kernels, rules=rules)
+        return self._logits(x, rules)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor,
+                rules: Optional[MeshRules] = None) -> torch.Tensor:
         """f32 logits from bf16 operands without rounding them to bf16.
 
         On the card, ``torch.mm(..., out_dtype=float32)`` accumulates and
@@ -153,12 +174,23 @@ class TransformerLM(nn.Module):
         backward keeps the operands bf16 too.  The CPU
         backend has no ``out_dtype`` matmul, so there the operands are
         upcast.
+
+        Where the rules split ``vocab`` (the reference's logits over
+        ``vocab``), the rank's rows of the embedding give its columns of
+        the logits: a region entered by ``copy_to``, left by the
+        vocab-parallel loss.
         """
+        vocab = part(self.cfg.vocab_size, "vocab", rules)
+        if vocab.n > 1:
+            x = copy_to(x, vocab.axes)
+            embed = self.embed[vocab.slice]
+        else:
+            embed = replicated(self.embed, tensor_axes(rules))
         x2 = x.reshape(-1, x.shape[-1])
         if x2.is_cuda and x2.dtype != torch.float32:
-            out = LogitsFn.apply(x2, self.embed)
+            out = LogitsFn.apply(x2, embed)
         else:
-            out = x2.float() @ self.embed.t().float()
+            out = x2.float() @ embed.t().float()
         return out.reshape(*x.shape[:-1], out.shape[-1])
 
     def loss(self, batch: Dict[str, torch.Tensor]
@@ -167,7 +199,8 @@ class TransformerLM(nn.Module):
         aux, {"nll", "z_loss", "aux"}), f32; aux is 0 for the dense
         model."""
         logits = self.forward_logits(batch["tokens"])
-        nll, zl = L.softmax_xent(logits, batch["targets"])
+        nll, zl = L.softmax_xent(logits, batch["targets"], vocab=part(
+            self.cfg.vocab_size, "vocab", current_rules()))
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         return nll + zl + aux, {"nll": nll, "z_loss": zl, "aux": aux}
 
@@ -180,12 +213,14 @@ class TransformerLM(nn.Module):
     def decode_step(self, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int):
         """tokens: (B, 1); pos: int.  Returns (logits (B,1,V) f32, cache);
-        the cache is updated in place."""
+        the cache is updated in place.  Under rules that split ``vocab`` the
+        logits are the rank's columns."""
         cfg = self.cfg
+        rules = current_rules()
         x = self.embed[tokens]
         for i, blk in enumerate(self.blocks):
             x = layer_decode(x, blk, cfg, cache["k"][i], cache["v"][i], pos,
-                             kernels=self.use_kernels)
+                             kernels=self.use_kernels, rules=rules)
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
-                         kernels=self.use_kernels)
-        return self._logits(x), cache
+                         kernels=self.use_kernels, rules=rules)
+        return self._logits(x, rules), cache

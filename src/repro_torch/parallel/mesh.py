@@ -4,13 +4,17 @@
 A ``RankGrid`` lays ``R`` processes of a ``torch.distributed`` job out on
 named axes, row-major over ``axis_names``: on a ``(pod, data)`` grid of
 ``S x F`` ranks, rank ``r`` sits at pod ``r // F`` and data index
-``r % F``, which is jax's device order in ``jax.make_mesh``.  Each axis of
-size above 1 gets one process group per line of the grid along it: the
-``data`` (fast) group holds the ranks of one pod, the ``pod`` (slow) group
-the ranks that share a data index.  A rank's group along an axis lists the
-ranks in the order of their coordinate, so a collective's group rank is
-the coordinate (``torch.distributed.new_group`` sorts its ranks, and the
-coordinate grows with the rank).
+``r % F``, which is jax's device order in ``jax.make_mesh``; on a
+``(data, model)`` grid of ``D x M`` ranks, rank ``r`` sits at data index
+``r // M`` and model index ``r % M``.  Each axis of size above 1 gets one
+process group per line of the grid along it: the ``data`` (fast) group
+holds the ranks of one pod, the ``pod`` (slow) group the ranks that share
+a data index, the ``model`` group (tensor parallelism, the rules of
+``repro_torch.sharding``) the ranks of one data index.  A rank's group
+along an axis lists the ranks in the order of their coordinate, so a
+collective's group rank is the coordinate (``torch.distributed.new_group``
+sorts its ranks, and on an ascending grid the coordinate grows with the
+rank; permuted rank orders are refused).
 
 ``torch.distributed.new_group`` is collective over the whole job: every
 process calls it for every group, in the same order, member or not.  So

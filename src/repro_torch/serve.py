@@ -10,6 +10,16 @@ They take any model of the registry (the dense ``TransformerLM``, the
 hybrid ``ZambaLM``, the ``XLSTMLM``) and know nothing of its cache's
 structure: the model makes the cache and its decode step updates it.
 
+On a rank grid (``grid``, every rank of which calls the step on the same
+global tokens) the steps run under the grid's rules
+(``sharding.make_rules(grid)``), as the reference's take its mesh rules:
+each rank keeps its rows of the batch (``batch``, over the data axes) and,
+for the dense model, its share of every layer (``heads``, ``ff``,
+``vocab`` over ``model``).  A step returns the rank's block of the logits, its rows and its vocab
+columns; a decode step's cache is the rank's, made for its rows
+(``local_rows``), with every key/value head.  ``BatchedServer`` is
+single-rank.
+
 ``BatchedServer`` keeps the JAX server's behaviour, quirks included, so its
 tokens can be held against the reference: decode runs in lockstep on one
 global position; a request that takes over a slot does not reset that
@@ -28,32 +38,46 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.registry import check_on_device, resolve_device
+from repro_torch.models.registry import (check_on_device, grid_rules,
+                                         resolve_device)
+from repro_torch.sharding import MeshRules, part, use_rules
 
 
-def make_serve_step(model, *, device=None):
+def local_rows(batch_size: int, rules: Optional[MeshRules]) -> slice:
+    """The rows of a global batch of ``batch_size`` that this rank serves
+    under ``rules``."""
+    return part(batch_size, "batch", rules).slice
+
+
+def make_serve_step(model, *, device=None, grid=None):
     """Returns step(cache, tokens (B,1), pos) -> (logits (B,1,V), cache);
     the cache is updated in place.  Logits are f32 for the dense model and
-    in the model's dtype for the others, as in the reference."""
+    in the model's dtype for the others, as in the reference.  On a grid,
+    the rank's block of the logits, from its cache (module docstring)."""
     dev = resolve_device(device)
     check_on_device(model, dev)
+    rules = grid_rules(model, grid)
 
     def step(cache, tokens, pos: int):
-        with torch.inference_mode():
-            return model.decode_step(cache, tokens.to(dev), pos)
+        rows = local_rows(tokens.shape[0], rules)
+        with torch.inference_mode(), use_rules(rules):
+            return model.decode_step(cache, tokens[rows].to(dev), pos)
 
     return step
 
 
-def make_prefill_step(model, *, device=None):
+def make_prefill_step(model, *, device=None, grid=None):
     """Returns step(tokens (B,S)) -> logits (B,S,V): the full-sequence
-    forward (logits dtype as ``make_serve_step``'s)."""
+    forward (logits dtype as ``make_serve_step``'s).  On a grid, the
+    rank's block of the logits (module docstring)."""
     dev = resolve_device(device)
     check_on_device(model, dev)
+    rules = grid_rules(model, grid)
 
     def step(tokens):
-        with torch.inference_mode():
-            return model.forward_logits(tokens.to(dev))
+        rows = local_rows(tokens.shape[0], rules)
+        with torch.inference_mode(), use_rules(rules):
+            return model.forward_logits(tokens[rows].to(dev))
 
     return step
 

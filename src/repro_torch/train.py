@@ -18,7 +18,10 @@ axes gives them.  The manual-sync modes (``hier``, ``hier_bucketed``,
 ``hier_bucketed_zero1``) sync the gradients through
 ``collectives.hierarchical`` and ``collectives.bucketing``: reduce-scatter
 over the fast axis (``data``, host shared memory), the 1/F shard across
-the slow axis (``pod``), all-gather over the fast axis.
+the slow axis (``pod``), all-gather over the fast axis.  The ``"xla"``
+mode also runs on a ``(data, model)`` grid, under the rules of
+``repro_torch.sharding``: rows over ``data``, the dense model
+tensor-parallel over ``model`` (:func:`make_grid_loss_and_grad`).
 
 ``Trainer`` runs the step over ``SyntheticCorpus`` batches with the
 reference's prefetch, heartbeat, straggler record and history, periodic
@@ -45,10 +48,12 @@ from repro_torch.collectives.hierarchical import (flat_all_reduce_mean,
                                                   hier_all_reduce_mean)
 from repro_torch.data import DataConfig, Prefetcher, SyntheticCorpus
 from repro_torch.elastic import HeartbeatMonitor, StragglerDetector
-from repro_torch.models.registry import check_on_device, resolve_device
+from repro_torch.models.registry import (check_on_device, grid_rules,
+                                         resolve_device)
 from repro_torch.parallel.collectives import STATS
 from repro_torch.parallel.mesh import (Axis, RankGrid, axes_size,
                                        grad_sync_axes)
+from repro_torch.sharding import batch_axes, tensor_axes, use_rules
 
 Tree = Dict[str, torch.Tensor]
 
@@ -120,6 +125,8 @@ def make_loss_and_grad(model: nn.Module, *, accum: int):
             for acc, gi in zip(grads, g):
                 acc += gi
             loss_sum += loss
+            # the next microbatch's casts and gradients replace these
+            del cast, g
         inv = 1.0 / accum
         return loss_sum * inv, {n: g * inv for n, g in zip(names, grads)}
 
@@ -219,18 +226,26 @@ class _SyncGrid(NamedTuple):
     index: int
 
 
-def _sync_grid(grid: Optional[RankGrid]) -> _SyncGrid:
-    fast_axis, slow_axis = grad_sync_axes(grid)
+def _sync_grid(grid: Optional[RankGrid],
+               axes: Tuple[str, ...] = ("pod", "data")) -> _SyncGrid:
+    """The step's view of the grid axes named in ``axes`` (the batch's):
+    its rows split over them, its gradients and loss mean-reduced over
+    them."""
     names = tuple(a for a in (grid.axis_names if grid is not None else ())
-                  if a in ("pod", "data"))
+                  if a in axes)
     n = axes_size(grid, names)
     if n == 1:
         # degenerate (single-rank) grid: no collective runs
         return _SyncGrid(None, None, (), 1, 0)
     if not grid.member:
         raise ValueError(f"this process is not a rank of {grid}")
-    return _SyncGrid(grid.axis(fast_axis), grid.axis(slow_axis),
-                     tuple(grid.axis(a) for a in names), n, grid.rank)
+    sync = tuple(grid.axis(a) for a in names)
+    index = 0
+    for ax in sync:
+        index = index * ax.size + ax.index
+    return _SyncGrid(grid.axis("data") if "data" in names else None,
+                     grid.axis("pod") if "pod" in names else None, sync, n,
+                     index)
 
 
 def _local_rows(batch: Tree, sg: _SyncGrid) -> Tree:
@@ -279,9 +294,12 @@ def _make_manual_sync_step(model: nn.Module, ocfg: optim.AdamWConfig, *,
     then bitwise identical across every (pod, data) factorization of the
     same rank count.
 
-    The reference checks its mesh rules here (``_check_manual_sync_rules``):
-    a rank grid has no parameter axes, so there is nothing to check.
+    The reference checks its mesh here (``grad_sync_axes`` and
+    ``_check_manual_sync_rules``, ``repro/train.py:217-234``): a grid with
+    a ``model`` axis above 1 is refused, as params cannot stay replicated
+    under tensor parallelism inside a manual sync.
     """
+    grad_sync_axes(grid)
     sg = _sync_grid(grid)
     ef, dt = slow_error_feedback, deterministic_reduce
     lg = layout = blg = None
@@ -406,10 +424,13 @@ def make_train_step(model: nn.Module, ocfg: optim.AdamWConfig, *,
 
     ``cross_pod_mode``: ``"xla"`` is accumulated loss-and-grad, then
     AdamW; on a grid of more than one rank the gradients and the loss are
-    mean-reduced over all its ranks first, as SPMD does in the reference
-    (per tensor, one flat all-reduce an axis).  ``"compressed"`` is the
-    same step on a grid of one pod, and refused on more than one, as in the
-    reference.  ``"hier"``, ``"hier_bucketed"`` and
+    made whole and mean-reduced over its batch axes first
+    (:func:`make_grid_loss_and_grad`).  It runs under the grid's rules,
+    ``sharding.make_rules(grid)``: on a ``(data, model)`` grid the dense
+    model is tensor-parallel over ``model``, while params and AdamW state
+    stay whole on every rank, the reference ``Trainer``'s layout.
+    ``"compressed"`` is the same step on a grid of one pod, and refused on
+    more than one, as in the reference.  ``"hier"``, ``"hier_bucketed"`` and
     ``"hier_bucketed_zero1"`` are the manual-sync modes, with the
     reference's options: ``overlap`` (bucketed modes) pipelines bucket
     i+1's fast reduce-scatter under bucket i's slow hop, bitwise identical;
@@ -453,19 +474,51 @@ def make_train_step(model: nn.Module, ocfg: optim.AdamWConfig, *,
             slow_compress_bits=slow_compress_bits, overlap=overlap,
             slow_error_feedback=slow_error_feedback,
             deterministic_reduce=deterministic_reduce, device=dev)
-    lg = make_loss_and_grad(model, accum=accum)
-    sg = _sync_grid(grid)
+    lg = make_grid_loss_and_grad(model, accum=accum, grid=grid)
 
     def step(params: Tree, opt_state: optim.OptState, batch: Tree):
-        loss, grads = lg(params, _local_rows(batch, sg))
-        if sg.axes:
-            grads = {n: flat_all_reduce_mean(g, axes=sg.axes)
-                     for n, g in grads.items()}
-            loss = PX.psum(loss, sg.axes) / sg.n
+        loss, grads = lg(params, batch)
         params, opt_state, om = optim.apply(ocfg, params, grads, opt_state)
         return params, opt_state, {"loss": loss, **om}
 
     return step
+
+
+def make_grid_loss_and_grad(model: nn.Module, *, accum: int,
+                            grid: Optional[RankGrid] = None):
+    """Returns fn(params, global batch) -> (loss, grads): the ``"xla"``
+    step's loss and gradient on ``grid`` under its rules
+    (``registry.grid_rules``), complete and the same on every rank, as the
+    reference's single-device loss-and-grad of the global batch.
+
+    Each rank runs :func:`make_loss_and_grad` on its rows (split over the
+    rules' batch axes, ``data``; every ``model`` rank of a data index sees
+    the same rows) under the rules, so a dense model computes its share of
+    each layer.  Its gradients are then summed over the tensor-parallel
+    axes: a leaf read through the rank's slice holds zeros outside it, a
+    partial sum (``wk``, ``wv``) holds the rank's part, and a leaf that a
+    computation used whole is counted on one rank
+    (``parallel.tensor.replicated``).  Then gradients and loss are
+    mean-reduced over the batch axes, per tensor, one flat all-reduce an
+    axis, as SPMD does in the reference."""
+    rules = grid_rules(model, grid)
+    sg = _sync_grid(grid, batch_axes(rules))
+    tp = tensor_axes(rules)
+    lg = make_loss_and_grad(model, accum=accum)
+
+    def fn(params: Tree, batch: Tree) -> Tuple[torch.Tensor, Tree]:
+        with use_rules(rules):
+            loss, grads = lg(params, _local_rows(batch, sg))
+        for n in grads:         # leaf by leaf: one leaf's copy at a time
+            if tp:
+                grads[n] = PX.psum(grads[n], tp)
+            if sg.axes:
+                grads[n] = flat_all_reduce_mean(grads[n], axes=sg.axes)
+        if sg.axes:
+            loss = PX.psum(loss, sg.axes) / sg.n
+        return loss, grads
+
+    return fn
 
 
 def init_train_state(model: nn.Module, ocfg: optim.AdamWConfig, *,

@@ -528,3 +528,131 @@ def load_spec(path):
     import pickle
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _tp_model(cfg, weights):
+    """The dense model of ``cfg`` in f32 with remat (the reference's
+    default), from ``weights``."""
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg, device="cpu", seed=None, dtype=torch.float32,
+                        remat=True)
+    model.load_state_dict({n: to_torch(a) for n, a in weights.items()},
+                          strict=True)
+    return model
+
+
+class _Shapes:
+    """Records, while on, the heads that reach the attention core and the
+    width of the MLP's gated hidden (``F.silu``'s input)."""
+
+    def __init__(self):
+        import torch.nn.functional as F
+        from repro_torch.models import layers as L
+        self.attention, self.ff, self.on = [], [], False
+        full, silu = L.full_attention, F.silu
+
+        def attention(q, k, v, **kw):
+            if self.on:
+                self.attention.append((q.shape[2], k.shape[2]))
+            return full(q, k, v, **kw)
+
+        def gate(x, *a, **kw):
+            if self.on:
+                self.ff.append(x.shape[-1])
+            return silu(x, *a, **kw)
+
+        L.full_attention, F.silu = attention, gate
+
+
+def _tp_run(spec, cfg_name, shape, accum, grid, shapes):
+    """One configuration on one grid: two ``xla`` steps; the gradient
+    (``make_grid_loss_and_grad``) of each step's batch at the reference's
+    params of that step, the rank's shares on the way; a prefill and a few
+    decode steps."""
+    from repro_torch import optim, train
+    from repro_torch.serve import local_rows, make_prefill_step, \
+        make_serve_step
+    from repro_torch.sharding import make_rules
+    c = spec["configs"][cfg_name]
+    cfg, weights = c["cfg"], c["weights"]
+    batches = [{k: to_torch(v) for k, v in b.items()} for b in c["batches"]]
+    model = _tp_model(cfg, weights)
+    ocfg = optim.AdamWConfig(**spec["ocfg"])
+    params, state = train.init_train_state(model, ocfg, seed=None, grid=grid)
+    step = train.make_train_step(model, ocfg, accum=accum, device="cpu",
+                                 grid=grid)
+    out = {"loss": [], "grad_norm": [], "digests": []}
+    for b in batches:
+        params, state, m = step(params, state, b)
+        out["loss"].append(m["loss"].item())
+        out["grad_norm"].append(m["grad_norm"].item())
+        out["digests"].append(digest(params))
+    out["params"] = {n: p.numpy().copy() for n, p in params.items()}
+    # each step's gradient from the reference's params at that step
+    out["grads"] = []
+    for i, (w, b) in enumerate(zip(c["step_weights"], batches)):
+        model = _tp_model(cfg, w)
+        shapes.attention.clear()
+        shapes.ff.clear()
+        shapes.on = True
+        loss, grads = train.make_grid_loss_and_grad(
+            model, accum=accum, grid=grid)(
+                {n: p.detach() for n, p in model.named_parameters()}, b)
+        shapes.on = False
+        out["grads"].append((loss.item(),
+                             {n: g.numpy() for n, g in grads.items()}))
+        if i == 0:
+            out["attention"] = sorted(set(shapes.attention))
+            out["ff"] = sorted(set(shapes.ff))
+    # serving from the bridged weights again (the steps moved the model's)
+    model = _tp_model(cfg, weights)
+    tokens = to_torch(c["prompt"])
+    out["prefill"] = make_prefill_step(model, device="cpu",
+                                       grid=grid)(tokens).numpy()
+    serve = make_serve_step(model, device="cpu", grid=grid)
+    rows = local_rows(tokens.shape[0], make_rules(grid))
+    cache = model.init_cache(rows.stop - rows.start, c["max_seq"])
+    out["decode"] = [serve(cache, tokens[:, i:i + 1], i)[0].numpy()
+                     for i in range(c["decode_steps"])]
+    return out
+
+
+def _tp_trainer(spec, grid, n_steps, ckpt_dir, *, ckpt_every, resume):
+    from repro_torch import optim, train
+    from repro_torch.data import DataConfig
+    c = spec["configs"]["base"]
+    model = _tp_model(c["cfg"], c["weights"])
+    tcfg = train.TrainerConfig(n_steps=n_steps, ckpt_every=ckpt_every,
+                               ckpt_dir=ckpt_dir, log_every=1,
+                               accum=spec["trainer_accum"],
+                               async_ckpt=False)
+    out = train.Trainer(model, optim.AdamWConfig(**spec["ocfg"]), tcfg,
+                        DataConfig(**spec["trainer_data"]), device="cpu",
+                        grid=grid).run(seed=None, resume=resume)
+    return {"loss": [h["loss"] for h in out["history"]],
+            "digest": digest(out["params"]),
+            "params": {n: p.numpy().copy()
+                       for n, p in out["params"].items()}}
+
+
+def tp_ranks(rank, world, spec):
+    """Every run of ``spec["runs"]`` (configuration, grid shape, accum) on
+    its (data, model) grid; then the Trainer on (2, 2): a run that saves
+    at step 1 and its resume to step 2."""
+    from repro_torch.parallel.mesh import make_rank_grid
+    grids = {tuple(s): make_rank_grid(s, ("data", "model"))
+             for s in ((1, 4), (2, 2))}
+    shapes = _Shapes()
+    out = {"coords": {s: (g.axis("data").index if g.axis("data") else 0,
+                          g.axis("model").index) for s, g in grids.items()}}
+    for cfg_name, shape, accum in spec["runs"]:
+        out[(cfg_name, tuple(shape))] = _tp_run(
+            spec, cfg_name, shape, accum, grids[tuple(shape)], shapes)
+    g22, d = grids[(2, 2)], spec["ckpt_dir"]
+    out["trainer"] = {
+        "saved": _tp_trainer(spec, g22, 1, d, ckpt_every=1, resume=False),
+        "resumed": _tp_trainer(spec, g22, 2, d, ckpt_every=100,
+                               resume=True)}
+    return out

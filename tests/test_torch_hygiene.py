@@ -71,6 +71,24 @@ def test_control_plane_sources_import_no_jax_nor_repro(rel):
                          re.MULTILINE), rel
 
 
+TENSOR_PARALLEL = ["sharding.py", os.path.join("launch", "mesh.py"),
+                   os.path.join("parallel", "tensor.py")]
+
+
+@pytest.mark.parametrize("rel", TENSOR_PARALLEL)
+def test_tensor_parallel_sources_import_no_jax_nor_repro(rel):
+    """The rules, the production rules and the differentiable collectives
+    of the ``model`` axis are among the sources the walk reads, and each
+    imports only the port, lazily too."""
+    path = os.path.join(PORT, rel)
+    assert path in set(_port_sources())
+    with open(path) as f:
+        src = f.read()
+    assert not FORBIDDEN.findall(src), rel
+    assert not re.search(r"^\s*(?:import|from)\s+repro\b(?!_torch)", src,
+                         re.MULTILINE), rel
+
+
 def test_no_source_names_a_jax_entry_point():
     """No source of the port names a module of the JAX package to run
     or import (the executor's pod entry point is the port's launcher)."""
