@@ -163,6 +163,27 @@ checkout.  Phases, each printing one ``phase <name>: {...}`` line:
                16, 33 and 0) and a training step's (34 and 16).  Prints
                each step's s and its share in gloo, prefill s against the
                single rank's, each rank's peak memory.
+               Between the decode steps and the training, in the same job,
+               the sequence-sharded decode (``KV_SEQ``, ``kv_seq_rank``):
+               llama3.2-1b under ``seq_shard`` on (1, 4) (S 32,768, B 4)
+               and zamba2-1.2b under ``long_ctx`` on (4, 1) (S 524,288,
+               B 1) at full width and depth, each rank's ``kv_seq`` slice
+               of a cache drawn from a seed, made by ``init_cache`` under
+               ``make_serve_step``'s rules; the parent's single-rank steps
+               on the whole cache, before the job, are the oracle.  Gates
+               at every step (positions in shard 0, either side of the
+               first boundary, last): each rank's block of the
+               logits within the logits' bound (p99.9 and max a step,
+               top-1 over the steps); layer 0's merged attention within
+               1% by norm of the single rank's, and at the last position
+               two faulty merges (the merge skipped, the shards not
+               rescaled) outside that bound; every position of every
+               rank's slice but the one the owner writes bitwise its
+               seed's; exactly one owner, whose layer-0 entry is the single
+               rank's bit for bit and whose deeper ones lie within 10% by
+               norm; K1 a step a rank as a decode step gives (33, 89), no
+               other kernel.  Prints ms a step sharded and single-rank,
+               all-reduces and bytes a step, peak GiB a rank.
 6. ckpt     -- the sharded checkpoint at full width: llama3.2-1b's
                widths at 4 layers (the train phase's batch and optimizer)
                through ``Trainer`` with K1 and K2: two uninterrupted runs
@@ -2637,7 +2658,7 @@ TP_ARCH = "llama3.2-1b"
 TP_RANKS = 4
 TP_GRIDS = {"14": ((1, 4), ("data", "model")),
             "22": ((2, 2), ("data", "model"))}
-TP_SERVE = dict(batch=4, seq=1024, runs=3, decode_steps=8, max_seq=64)
+TP_SERVE = dict(batch=4, seq=1024, runs=1, decode_steps=8, max_seq=64)
 # full width at 4 of 16 layers: 0.51 B params, 7.1 GB of bf16 params and
 # f32 masters, mu and nu a rank; both steps on global batch 0, so step 1's
 # loss, after a full update (SYNC_OPT: no warmup), must lie below step 0's
@@ -2648,12 +2669,422 @@ TP_DEADLINE_S = 600
 TP_GLOO = ("d2h", "fast all_reduce", "h2d")
 
 
-def tp_rank(rank: int, world: int) -> dict:
+# the sequence-sharded decode (flash-decode over a kv_seq-sharded KV
+# cache), in the tp phase's gloo job before its training: llama3.2-1b at
+# decode_32k's sequence under seq_shard on (1, 4) (a rank holds 8,192 of
+# 32,768 positions, 1.07 of 4.29 GB; batch 4 of the reference's 128, whose
+# cache would be 137 GB) and zamba2-1.2b at long_500k's under long_ctx on
+# (4, 1) (131,072 of 524,288 positions, 6.44 of 25.8 GB; batch 1, the
+# reference's).  No prefill writes the port's cache, so its entries are
+# random, not the model's: each drawn from a seed on the card, slice by
+# slice, so that the whole cache is the ranks' slices end to end
+# (``kv_seq_draw``); the hybrid's mamba states likewise, whole.  Every step
+# runs from that cache (the entry it writes and the states it moves are put
+# back), at a position in shard 0 (three shards wholly masked), either
+# side of the first boundary (the owner changes) and the last (every shard
+# full); the single-rank step on the whole cache, in the parent before the
+# job, is the oracle.
+KV_SEQ = {
+    "llama": dict(arch="llama3.2-1b", flags=dict(seq_shard=True),
+                  grid=(1, 4), batch=4, seq=32768,
+                  positions=(1000, 8191, 8192, 32767)),
+    "zamba": dict(arch="zamba2-1.2b", flags=dict(long_ctx=True),
+                  grid=(4, 1), batch=1, seq=524288,
+                  positions=(1000, 131071, 131072, 524287)),
+}
+KV_SEQ_SHARDS = 4
+KV_SEQ_SEED = 11
+# The owner's written K/V entry: layer 0's, whose input no merge and no
+# tensor-parallel sum has touched, must be the single rank's bit for bit;
+# with every other position of every rank's slice bitwise its seed's, that
+# holds the write (where, and what).  A deeper layer's entry is computed
+# from the residual stream, which the merge's and the tensor-parallel sums'
+# roundings move: it is held by norm within KV_SEQ_ENTRY_RTOL of the single
+# rank's (llama3.2-1b's read up to 3.51% on an H100).
+KV_SEQ_ENTRY_RTOL = 0.10
+# Layer 0's merged attention output, every head of every row, by norm
+# against the single rank's: its q and its slice of the cache are the
+# single rank's bit for bit, so only the merge's order of summation and
+# the bf16 rounding of the output part them.  Over random keys the softmax
+# is nearly flat and attention adds little to the residual stream, so the
+# logits' bound alone would not see a wrong merge: at the last position
+# (every shard full) two faulty merges of the same partials must lie
+# outside this bound, the merge skipped (each rank's own softmax) and the
+# shards' l and acc summed without rescaling to the global max.
+KV_SEQ_ATTN_RTOL = 1e-2
+KV_SEQ_CONTROLS = ("merge skipped", "not rescaled")
+
+
+class Layer0Attention:
+    """Within its ``with``, keeps the first call of ``models/attention.py::
+    sharded_decode_attention`` since ``clear()``, a decode step's layer-0
+    attention: its inputs and its output (every head)."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.module, self.real = attention, attention.sharded_decode_attention
+        self.call = None
+
+    def clear(self):
+        self.call = None
+
+    def __enter__(self):
+        def record(q, k_cache, v_cache, pos, **kw):
+            out = self.real(q, k_cache, v_cache, pos, **kw)
+            if self.call is None:
+                self.call = dict(q=q, k=k_cache, v=v_cache, pos=pos, kw=kw,
+                                 out=out)
+            return out
+        self.module.sharded_decode_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.sharded_decode_attention = self.real
+
+
+def rel_norm(torch, got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def kv_seq_controls(torch, call, seq) -> dict:
+    """Layer 0's attention as ``KV_SEQ_CONTROLS``' faulty merges give it,
+    from this rank's partials over its slice (``call``, a
+    ``Layer0Attention`` record): the merge skipped, and l and acc summed
+    over the ``kv_seq`` axes without the rescaling to the global max."""
+    from repro_torch.models import attention as A
+    q, k, v = call["q"], call["k"], call["v"]
+    B, _, H, D = q.shape
+    Kv = k.shape[2]
+    valid = seq.lo + torch.arange(k.shape[1], device=q.device) \
+        < call["pos"] + 1
+    m, l, acc = A._local_partial_softmax(
+        q.reshape(B, 1, Kv, H // Kv, D), k, v, valid,
+        softcap=call["kw"].get("softcap", 0.0))
+    outs = (A.merge_partials(m, l, acc, pmax=lambda x: x,
+                             psum=lambda a, b: (a, b)),
+            A.merge_partials(m, l, acc, pmax=lambda x: x,
+                             psum=A._grid_reductions(seq.axes)["psum"]))
+    return {name: o.reshape(B, 1, H, -1).to(q.dtype)
+            for name, o in zip(KV_SEQ_CONTROLS, outs)}
+
+
+def kv_seq_draw(torch, dev, key: str, layer: int, shard: int, shape,
+                dtype=None):
+    """One layer's slice ``shard`` of cache leaf ``key`` (or, with
+    ``shard`` -1, a whole leaf), drawn from its own seed on the card."""
+    import zlib
+    seed = zlib.crc32(f"{KV_SEQ_SEED}/{key}/{layer}/{shard}".encode())
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev,
+                       dtype=dtype or torch.bfloat16)
+
+
+def kv_seq_fill(torch, dev, cache, kv_keys, shards, s_loc: int) -> dict:
+    """Fill a cache (whole, ``shards`` all of them; or a rank's, its one
+    shard) from the seeds; the mamba states whole.  Returns a copy of the
+    recurrent states, to put back after each step."""
+    for key in kv_keys:
+        t = cache[key]
+        for layer in range(t.shape[0]):
+            for j, shard in enumerate(shards):
+                t[layer][:, j * s_loc:(j + 1) * s_loc] = kv_seq_draw(
+                    torch, dev, key, layer, shard,
+                    (t.shape[1], s_loc) + tuple(t.shape[3:]))
+    states = {}
+    for group in ("mamba", "tail"):
+        for name, t in cache.get(group, {}).items():
+            t.copy_(kv_seq_draw(torch, dev, f"{group}.{name}", 0, -1,
+                                t.shape, t.dtype))
+            states[(group, name)] = t.clone()
+    return states
+
+
+def kv_seq_restore(cache, states) -> None:
+    for (group, name), t in states.items():
+        cache[group][name].copy_(t)
+
+
+def kv_seq_tokens(spec) -> list:
+    """Each step's tokens (B, 1), from the seed."""
+    from repro_torch.models.registry import get_config
+    rng = np.random.default_rng(KV_SEQ_SEED)
+    V = get_config(spec["arch"]).vocab_size
+    return [rng.integers(0, V, (spec["batch"], 1))
+            for _ in spec["positions"]]
+
+
+def kv_keys(cfg) -> tuple:
+    return ("k", "v") if cfg.family == "dense" else ("attn_k", "attn_v")
+
+
+def kv_seq_oracle(torch, dev) -> dict:
+    """The single-rank decode steps on the whole caches, one model at a
+    time: each step's logits, the K/V entries it wrote and its ms."""
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serve import make_serve_step
+    out = {}
+    for name, spec in KV_SEQ.items():
+        cfg = get_config(spec["arch"])
+        model = build_model(cfg, device=dev, seed=SEED)
+        B, S = spec["batch"], spec["seq"]
+        keys = kv_keys(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cache = model.init_cache(B, S)
+        states = kv_seq_fill(torch, dev, cache, keys,
+                             range(KV_SEQ_SHARDS), S // KV_SEQ_SHARDS)
+        step = make_serve_step(model, device=dev)
+        rows = []
+        for pos, tokens in zip(spec["positions"], kv_seq_tokens(spec)):
+            before = {k: cache[k][:, :, pos].clone() for k in keys}
+            torch.cuda.synchronize(dev)
+            with Layer0Attention() as attn0:
+                t0 = time.perf_counter()
+                logits, cache = step(cache, torch.from_numpy(tokens), pos)
+                torch.cuda.synchronize(dev)
+                sec = time.perf_counter() - t0
+            rows.append(dict(seconds=sec, logits=logits.cpu(),
+                             attn0=attn0.call["out"].cpu(),
+                             entries={k: cache[k][:, :, pos].clone().cpu()
+                                      for k in keys}))
+            attn0.clear()     # its views of the cache
+            for k in keys:
+                cache[k][:, :, pos] = before[k]
+            kv_seq_restore(cache, states)
+        out[name] = dict(steps=rows, peak_memory_gib=torch.cuda
+                         .max_memory_allocated(dev) / 2 ** 30)
+        del model, cache, step, states
+        torch.cuda.empty_cache()
+    return out
+
+
+def kv_seq_rank(torch, dev, name, model, oracle, reset, counts) -> dict:
+    """One model's sequence-sharded decode steps on this rank: its slice of
+    the cache made under the step's rules and filled from the seeds; each
+    step's logits block against the single rank's (``logit_stats``), its
+    layer-0 attention and the faulty merges' against the single rank's
+    (``Layer0Attention``, ``kv_seq_controls``), the slice checked bitwise
+    against its seeds at every position but the one the owner writes, and
+    the owner's written entries against the single rank's.  Returns the numbers and the logits blocks; the parent gates
+    them (``check_kv_seq``)."""
+    from repro_torch.parallel.collectives import STATS
+    from repro_torch.parallel.mesh import make_rank_grid
+    from repro_torch.serve import make_serve_step
+    from repro_torch.sharding import part, use_rules
+    spec = KV_SEQ[name]
+    cfg = model.cfg
+    keys = kv_keys(cfg)
+    B, S = spec["batch"], spec["seq"]
+    grid = make_rank_grid(spec["grid"], ("data", "model"))
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_serve_step(model, device=dev, grid=grid, **spec["flags"])
+    with use_rules(step.rules):
+        cache = model.init_cache(B, S)
+    seq = part(S, "kv_seq", step.rules)
+    s_loc = seq.hi - seq.lo
+    if seq.n != KV_SEQ_SHARDS or cache[keys[0]].shape[2] != s_loc:
+        raise AssertionError(f"kv_seq {name}: the rank's cache "
+                             f"{tuple(cache[keys[0]].shape)}, part {seq}")
+    states = kv_seq_fill(torch, dev, cache, keys, [seq.index], s_loc)
+    vocab = part(cfg.vocab_size, "vocab", step.rules)
+    rows, blocks = [], []
+    for i, (pos, tokens) in enumerate(zip(spec["positions"],
+                                          kv_seq_tokens(spec))):
+        reset()
+        STATS.reset()
+        torch.cuda.synchronize(dev)
+        with Layer0Attention() as attn0:
+            t0 = time.perf_counter()
+            logits, cache = step(cache, torch.from_numpy(tokens), pos)
+            torch.cuda.synchronize(dev)
+            sec = time.perf_counter() - t0
+        want = oracle["steps"][i]
+        row = dict(pos=pos, seconds=sec, launches=counts(),
+                   stats=STATS.snapshot(), logits=logit_stats(
+                       torch, logits, want["logits"].to(dev)[...,
+                                                             vocab.slice]))
+        # layer 0's merged attention, and the faulty merges' (after the
+        # step's counts: their all-reduce is not the step's)
+        ref = want["attn0"].to(dev)
+        row["attn0"] = dict(merged=rel_norm(torch, attn0.call["out"], ref),
+                            **{n: rel_norm(torch, o, ref) for n, o in
+                               kv_seq_controls(torch, attn0.call,
+                                               seq).items()})
+        attn0.clear()
+        blocks.append(logits.cpu())
+        owner = seq.lo <= pos < seq.hi
+        row.update(owner=owner, entries={}, changed=[])
+        for k in keys:
+            t, written = cache[k], []
+            for layer in range(t.shape[0]):
+                draw = kv_seq_draw(torch, dev, k, layer, seq.index,
+                                   (B, s_loc) + tuple(t.shape[3:]))
+                j = pos - seq.lo if owner else s_loc
+                if not (torch.equal(t[layer][:, :j], draw[:, :j])
+                        and torch.equal(t[layer][:, j + 1:],
+                                        draw[:, j + 1:])):
+                    row["changed"].append((k, layer))
+                if owner:
+                    written.append(t[layer][:, j].clone())
+                    t[layer][:, j] = draw[:, j]
+            if owner:
+                got = torch.stack(written)
+                ref = want["entries"][k].to(dev)
+                rel = [((g.float() - r.float()).norm()
+                        / r.float().norm()).item()
+                       for g, r in zip(got, ref)]
+                row["entries"][k] = dict(
+                    layer0_bitwise=torch.equal(got[0], ref[0]),
+                    rel_by_layer=rel, differing=int((got != ref).sum()),
+                    elements=got.numel())
+        kv_seq_restore(cache, states)
+        rows.append(row)
+    out = dict(steps=rows, blocks=torch.stack(blocks),
+               vocab=(vocab.lo, vocab.hi), seq=(seq.lo, seq.hi),
+               peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               card_used_gib=(torch.cuda.mem_get_info(dev)[1]
+                              - torch.cuda.mem_get_info(dev)[0]) / 2 ** 30)
+    del cache, step, states
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def check_kv_seq(res, oracle, oracle_s: float, launches) -> dict:
+    """The parent's gates on the ranks' sequence-sharded decode, after it
+    printed their figures: at every step, each rank's logits block within
+    the logits' bound's p99.9 and max of the single rank's, and the
+    model's logits (the ranks' vocabulary blocks side by side) within the
+    whole bound (``hold_logits``, top-1 over every row of every step: a
+    block's argmax alone is the largest of its near-tied random logits);
+    each rank's layer-0 attention within ``KV_SEQ_ATTN_RTOL`` of the single
+    rank's, and at the last position both faulty merges outside it; every
+    rank's slice bitwise its seeds but at the entry its owner writes;
+    exactly one owner, whose layer-0 entries are the single rank's bit for
+    bit and whose deeper ones lie within ``KV_SEQ_ENTRY_RTOL``; K1 launched
+    a rank as a decode step of the model gives and no other kernel.
+    Returns the figures."""
+    import torch
+    from repro_torch.models.registry import get_config
+    report, total, failed = {}, {}, []
+    for name, spec in KV_SEQ.items():
+        cfg = get_config(spec["arch"])
+        want = dict(expected_launches(cfg), flash_attention=0, ssd=0)
+        runs = [r["kv_seq"][name] for r in res]
+        for i, pos in enumerate(spec["positions"]):
+            rows = [run["steps"][i] for run in runs]
+            owners = [r for r, row in enumerate(rows) if row["owner"]]
+            if len(owners) != 1:
+                failed.append(f"{name} pos {pos}: owners {owners}")
+            for r, row in enumerate(rows):
+                st = row["logits"]
+                if not (st["p999_abs_dlogit"] < 0.2
+                        and st["max_abs_dlogit"] < 0.5):
+                    failed.append(f"{name} pos {pos} rank {r}: {st}")
+                if row["changed"]:
+                    failed.append(f"{name} pos {pos} rank {r}: its slice "
+                                  f"changed outside the owned entry in "
+                                  f"{row['changed']}")
+                if row["launches"] != want:
+                    failed.append(f"{name} pos {pos} rank {r}: launched "
+                                  f"{row['launches']}, a decode step "
+                                  f"gives {want}")
+                for k, n in row["launches"].items():
+                    total[k] = total.get(k, 0) + n
+                a = row["attn0"]
+                if not a["merged"] < KV_SEQ_ATTN_RTOL:
+                    failed.append(f"{name} pos {pos} rank {r}: layer 0's "
+                                  f"merged attention {a}")
+                if pos == spec["seq"] - 1 and not all(
+                        a[c] > KV_SEQ_ATTN_RTOL for c in KV_SEQ_CONTROLS):
+                    failed.append(f"{name} pos {pos} rank {r}: a faulty "
+                                  f"merge lies within the bound: {a}")
+            for r in owners:
+                for k, e in rows[r]["entries"].items():
+                    if not (e["layer0_bitwise"] and max(e["rel_by_layer"])
+                            < KV_SEQ_ENTRY_RTOL):
+                        failed.append(f"{name} pos {pos}: the owner's {k} "
+                                      f"entries {e}")
+        # the model's logits: the ranks' vocabulary blocks side by side
+        parts = {run["vocab"]: run["blocks"] for run in runs}
+        full = torch.cat([parts[v] for v in sorted(parts)], -1)
+        single = torch.stack([row["logits"] for row in
+                              oracle[name]["steps"]])
+        try:
+            held = hold_logits(torch, f"kv_seq {name}", full, single)
+        except AssertionError as e:
+            held = dict(logit_stats(torch, full, single), failed=True)
+            failed.append(str(e))
+        steps = runs[0]["steps"]
+        calls = {k: v for k, v in steps[-1]["stats"]["calls"].items() if v}
+        nbytes = {k: v for k, v in steps[-1]["stats"]["bytes"].items() if v}
+        single_s = [row["seconds"] for row in oracle[name]["steps"]]
+        report[name] = dict(
+            arch=spec["arch"], flags=spec["flags"], grid=spec["grid"],
+            batch=spec["batch"], seq=spec["seq"],
+            positions=spec["positions"],
+            ms_sharded=statistics.median(
+                row["seconds"] for run in runs for row in run["steps"])
+            * 1e3,
+            ms_single=statistics.median(single_s) * 1e3,
+            ms_sharded_rank0=[row["seconds"] * 1e3 for row in steps],
+            ms_single_steps=[x * 1e3 for x in single_s],
+            all_reduces_per_step=calls, bytes_per_step=nbytes,
+            launches_per_step_per_rank=steps[0]["launches"],
+            logits=held,
+            worst_block=max((row["logits"] for run in runs
+                             for row in run["steps"]),
+                            key=lambda x: x["max_abs_dlogit"]),
+            entries={row["pos"]: row["entries"] for run in runs
+                     for row in run["steps"] if row["owner"]},
+            attn0={pos: {k: (max if k == "merged" else min)(
+                run["steps"][i]["attn0"][k] for run in runs)
+                for k in ("merged",) + KV_SEQ_CONTROLS}
+                for i, pos in enumerate(spec["positions"])},
+            peak_memory_gib=[run["peak_memory_gib"] for run in runs],
+            card_used_gib=max(run["card_used_gib"] for run in runs),
+            oracle_peak_gib=oracle[name]["peak_memory_gib"],
+            seconds=[run["seconds"] for run in runs])
+        x = report[name]
+        print(f"  tp kv_seq {name} ({x['arch']}, {x['flags']}, "
+              f"{x['grid']}, B {x['batch']}, S {x['seq']}): decode step "
+              f"{x['ms_sharded']:.2f} ms sharded, {x['ms_single']:.2f} ms "
+              f"single rank; all-reduces {calls}, bytes {nbytes} a step a "
+              f"rank; K1 {x['launches_per_step_per_rank']['rmsnorm']} a "
+              f"step a rank; logits {held}; worst block "
+              f"{x['worst_block']}; peak GiB a rank "
+              f"{[round(v, 2) for v in x['peak_memory_gib']]}, the card "
+              f"{x['card_used_gib']:.2f} in use, the oracle "
+              f"{x['oracle_peak_gib']:.2f}; the part "
+              f"{max(x['seconds']):.1f} s a rank", flush=True)
+        for pos, a in x["attn0"].items():
+            print(f"    {name} pos {pos}: layer 0's attention by norm: "
+                  f"merged {a['merged']:.3g} (the largest rank's); merge "
+                  f"skipped {a['merge skipped']:.3g}, not rescaled "
+                  f"{a['not rescaled']:.3g} (the least rank's); bound "
+                  f"{KV_SEQ_ATTN_RTOL}", flush=True)
+        for pos, e in x["entries"].items():
+            print(f"    {name} pos {pos}: entries " + "; ".join(
+                f"{k} layer0 bitwise {v['layer0_bitwise']}, rel by layer "
+                f"max {max(v['rel_by_layer']):.3g}, differing "
+                f"{v['differing']}/{v['elements']}" for k, v in e.items()),
+                flush=True)
+    if failed:
+        raise AssertionError("kv_seq: " + "; ".join(failed))
+    launches.phases["tp kv_seq"] = total
+    report["oracle_seconds"] = oracle_s
+    return report
+
+
+def tp_rank(rank: int, world: int, kv_oracle: dict) -> dict:
     """One rank of the tp phase's gloo job, on the card: the (1, 4) grid's
     prefill and decode steps, each held against this rank's single-rank
-    step on its block of the logits; the (1, 4) and (2, 2) grids' training
-    steps; their f32 gradients, which rank 0 holds against the single-rank
-    one.  Returns numbers for the parent, which alone prints."""
+    step on its block of the logits; the sequence-sharded decode of
+    ``KV_SEQ``, against the parent's single-rank steps ``kv_oracle``
+    (``kv_seq_rank``); the (1, 4) and (2, 2) grids' training steps; their
+    f32 gradients, which rank 0 holds against the single-rank one.
+    Returns numbers for the parent, which alone prints."""
     import dataclasses
     import torch
     from repro_torch.kernels._build import all_kernels
@@ -2734,7 +3165,18 @@ def tp_rank(rank: int, world: int) -> dict:
                          **hold_logits(torch, f"tp decode, rank {rank}",
                                        torch.cat(blocks, 1),
                                        torch.cat(wants, 1)))
-    del model, cache, blocks, wants, prefill, single, serve, single_serve
+    del cache, blocks, wants, prefill, single, serve, single_serve
+    torch.cuda.empty_cache()
+    # -- the sequence-sharded decode: llama3.2-1b's replica, then zamba2's
+    out["kv_seq"] = {"llama": kv_seq_rank(torch, dev, "llama", model,
+                                          kv_oracle["llama"], reset, counts)}
+    del model
+    torch.cuda.empty_cache()
+    model = build_model(get_config(KV_SEQ["zamba"]["arch"]), device=dev,
+                        seed=SEED)
+    out["kv_seq"]["zamba"] = kv_seq_rank(torch, dev, "zamba", model,
+                                         kv_oracle["zamba"], reset, counts)
+    del model
     torch.cuda.empty_cache()
     # -- training, full width at 4 layers, on (1, 4) and (2, 2)
     tcfg = dataclasses.replace(cfg, n_layers=TP_TRAIN["layers"])
@@ -2788,12 +3230,13 @@ def tp_rank(rank: int, world: int) -> dict:
 
 
 def phase_tp(torch, dev, launches):
-    """Tensor parallelism on the card: the single-rank training steps (the
-    oracle) in this process, then 4 gloo ranks, each a process on this card
-    (``tp_rank``): prefill and decode of llama3.2-1b at full width and
-    depth on a (1, 4) (data, model) grid, its training at 4 layers on
-    (1, 4) and (2, 2); the gates; each step's seconds, its share in gloo
-    and each rank's peak memory."""
+    """Tensor parallelism on the card: the single-rank training steps and
+    sequence-sharded decode steps (the oracles) in this process, then 4
+    gloo ranks, each a process on this card (``tp_rank``): prefill and
+    decode of llama3.2-1b at full width and depth on a (1, 4)
+    (data, model) grid, the sequence-sharded decode of ``KV_SEQ``, the
+    training at 4 layers on (1, 4) and (2, 2); the gates; each step's
+    seconds, its share in gloo and each rank's peak memory."""
     import dataclasses
     from repro_torch import optim
     from repro_torch.models.registry import build_model, get_config
@@ -2814,12 +3257,16 @@ def phase_tp(torch, dev, launches):
         oracle.append((m["loss"].item(), m["grad_norm"].item()))
     del model, params, state, step, m
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kv_oracle = kv_seq_oracle(torch, dev)
+    kv_oracle_s = time.perf_counter() - t0
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     t0 = time.perf_counter()
-    res = run_ranks(tp_rank, TP_RANKS, deadline_s=TP_DEADLINE_S,
-                    timeout_s=300)
+    res = run_ranks(tp_rank, TP_RANKS, args=(kv_oracle,),
+                    deadline_s=TP_DEADLINE_S, timeout_s=300)
     ranks_s = time.perf_counter() - t0
+    kv_seq = check_kv_seq(res, kv_oracle, kv_oracle_s, launches)
 
     # serving: every rank's block held (inside the rank) and launched as a
     # prefill and a decode step of the model give
@@ -2910,7 +3357,8 @@ def phase_tp(torch, dev, launches):
          peak_memory_gib=[r["peak_memory_gib"] for r in res],
          card_free_gib=[r["card_free_gib"] for r in res],
          launches_per_step_per_rank=want,
-         launches_per_prefill=per_prefill, launches_per_decode=per_decode)
+         launches_per_prefill=per_prefill, launches_per_decode=per_decode,
+         kv_seq=kv_seq)
 
 
 # ---------------------------------------------------------------------------

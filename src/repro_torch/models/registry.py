@@ -12,9 +12,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.xlstm import XLSTMLM
 from repro_torch.models.zamba import ZambaLM
-from repro_torch.parallel.mesh import axes_size
-from repro_torch.sharding import (MeshRules, batch_axes, make_rules,
-                                  tensor_axes)
+from repro_torch.launch.mesh import production_rules
+from repro_torch.parallel.mesh import axes_size, axis_tuple
+from repro_torch.sharding import MeshRules, batch_axes, tensor_axes
 
 _CONFIG_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
@@ -100,8 +100,12 @@ def check_on_device(model: torch.nn.Module, device: torch.device) -> None:
 
 # the logical axes no model of the port splits yet, and the ROADMAP.md
 # item that ports each
-_UNSPLIT = {"kv_seq": "queue 1 item 9 (the sequence-sharded decode)",
-            "seq": "queue 1 item 16 (Megatron-SP)"}
+_UNSPLIT = {"seq": "queue 1 item 16 (Megatron-SP)"}
+
+# the families whose decode cache has a sequence axis, ``kv_seq``: their
+# decode steps split it where the rules say (flash-decode; only the decode
+# step takes rules that split it)
+KV_SEQ_FAMILIES = ("dense", "hybrid")
 
 
 def check_rules(model: torch.nn.Module, rules) -> None:
@@ -109,7 +113,8 @@ def check_rules(model: torch.nn.Module, rules) -> None:
     tensor_axes``) for a model whose tensor parallelism is not ported,
     rules that split an axis no model of the port splits, and rules that
     map nothing to a grid axis of more than one rank: each would run whole
-    on every rank what the grid splits."""
+    on every rank what the grid splits.  A split ``kv_seq`` uses its axes
+    only for a model with a KV cache."""
     if rules is None or rules.mesh is None:
         return
     family = model.cfg.family
@@ -125,20 +130,26 @@ def check_rules(model: torch.nn.Module, rules) -> None:
                 f"rules split {name!r} over {rules.rules[name]!r}; no "
                 f"model of the port splits it yet: ROADMAP.md {item}")
     used = set(batch_axes(rules)) | {a.name for a in tp}
+    if family in KV_SEQ_FAMILIES:
+        used |= set(axis_tuple(rules.rules.get("kv_seq")))
     idle = [a for a in rules.mesh.axis_names
             if rules.mesh.shape[a] > 1 and a not in used]
     if idle:
         raise ValueError(
-            f"no rule maps the batch or a layer to grid axes {idle} of "
+            f"no rule maps the batch, a layer or (decoding a model with a "
+            f"KV cache) the cache's sequence to grid axes {idle} of "
             f"{dict(rules.mesh.shape)}: every rank along them would "
             f"compute the same")
 
 
-def grid_rules(model: torch.nn.Module, grid) -> Optional[MeshRules]:
+def grid_rules(model: torch.nn.Module, grid, *, seq_shard: bool = False,
+               long_ctx: bool = False) -> Optional[MeshRules]:
     """The rules an entry point runs ``model`` under on ``grid``, as the
-    reference's launcher builds them (``sharding.make_rules(grid)``), and
+    reference builds them (``launch/mesh.py::production_rules``, with its
+    ``seq_shard`` and ``long_ctx``, which only the decode step passes), and
     checked (:func:`check_rules`); None without a grid."""
-    rules = make_rules(grid) if grid is not None else None
+    rules = (production_rules(grid, seq_shard=seq_shard, long_ctx=long_ctx)
+             if grid is not None else None)
     check_rules(model, rules)
     return rules
 

@@ -69,13 +69,14 @@ def layer_apply(x, p: Block, cfg: ArchConfig, *, positions,
 
 def layer_decode(x, p: Block, cfg: ArchConfig, k_cache, v_cache, pos: int,
                  *, kernels: bool = True,
-                 rules: Optional[MeshRules] = None) -> torch.Tensor:
+                 rules: Optional[MeshRules] = None,
+                 seq_len: Optional[int] = None) -> torch.Tensor:
     """One-token step of a block; writes its K/V entry into the caches
-    (B, S, Kv, hd) in place."""
+    (B, S, Kv, hd), the rank's part of ``seq_len`` positions, in place."""
     h = L.norm_apply(x, p.attn_norm, cfg.norm, cfg.norm_eps,
                      kernels=kernels, rules=rules)
     a, _, _ = A.gqa_decode(h, p.attn, cfg, k_cache, v_cache, pos,
-                           rules=rules)
+                           rules=rules, seq_len=seq_len)
     x = x + a
     h2 = L.norm_apply(x, p.ffn_norm, cfg.norm, cfg.norm_eps,
                       kernels=kernels, rules=rules)
@@ -207,20 +208,28 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int,
                    seq_len: int) -> Dict[str, torch.Tensor]:
-        return A.gqa_make_cache(self.cfg, batch_size, seq_len,
-                                self.cfg.n_layers, device=self.embed.device)
+        """{"k", "v": (n_layers, B, S, Kv, hd) bf16}.  Under rules with a
+        grid (``use_rules``), the rank's block of that cache: its rows and
+        its ``kv_seq`` slice, every key/value head, and ``"seq_len"``, the
+        global length."""
+        return A.make_rank_cache(
+            lambda b, s: A.gqa_make_cache(self.cfg, b, s, self.cfg.n_layers,
+                                          device=self.embed.device),
+            batch_size, seq_len)
 
     def decode_step(self, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int):
         """tokens: (B, 1); pos: int.  Returns (logits (B,1,V) f32, cache);
         the cache is updated in place.  Under rules that split ``vocab`` the
-        logits are the rank's columns."""
+        logits are the rank's columns; under rules that split ``kv_seq``
+        the cache is the rank's slice (``init_cache``)."""
         cfg = self.cfg
         rules = current_rules()
         x = self.embed[tokens]
         for i, blk in enumerate(self.blocks):
             x = layer_decode(x, blk, cfg, cache["k"][i], cache["v"][i], pos,
-                             kernels=self.use_kernels, rules=rules)
+                             kernels=self.use_kernels, rules=rules,
+                             seq_len=cache.get(A.SEQ_LEN))
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,
                          kernels=self.use_kernels, rules=rules)
         return self._logits(x, rules), cache

@@ -33,9 +33,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.transformer import Block, layer_apply, layer_decode
+from repro_torch.sharding import current_rules
 
 
 class MambaBlock(nn.Module):
@@ -150,7 +152,14 @@ class ZambaLM(nn.Module):
     def init_cache(self, batch_size: int, seq_len: int):
         """{"mamba": per-block states stacked (n_super, every, ...),
         "attn_k"/"attn_v": (n_super, B, S, Kv, hd) bf16, one per
-        application of the shared block, "tail": (n_tail, ...)}."""
+        application of the shared block, "tail": (n_tail, ...)}.  Under
+        rules with a grid (``use_rules``), the rank's block of that cache:
+        its rows of every leaf, its ``kv_seq`` slice of the attention caches
+        with every key/value head, the mamba states whole, and
+        ``"seq_len"``, the global length."""
+        return A.make_rank_cache(self._make_cache, batch_size, seq_len)
+
+    def _make_cache(self, batch_size: int, seq_len: int):
         cfg = self.cfg
         dev = self.embed.device
         every = cfg.hybrid_attn_every
@@ -179,8 +188,11 @@ class ZambaLM(nn.Module):
 
     def decode_step(self, cache, tokens: torch.Tensor, pos: int):
         """tokens: (B, 1); pos: int.  Returns (logits (B, 1, V) in the
-        model's dtype, cache); the cache is updated in place."""
+        model's dtype, cache); the cache is updated in place.  Under rules
+        that split ``kv_seq`` the attention caches are the rank's slice
+        (``init_cache``); the mamba states run whole on every rank."""
         cfg = self.cfg
+        rules = current_rules()
         x = self.embed[tokens]
         for i, group in enumerate(self.blocks):
             for j, blk in enumerate(group):
@@ -188,7 +200,8 @@ class ZambaLM(nn.Module):
                                        cache_view(cache["mamba"], i, j))
             x = layer_decode(x, self.shared_attn, cfg, cache["attn_k"][i],
                              cache["attn_v"][i], pos,
-                             kernels=self.use_kernels)
+                             kernels=self.use_kernels, rules=rules,
+                             seq_len=cache.get(A.SEQ_LEN))
         for i, blk in enumerate(self.tail):
             x = self._mamba_decode(x, blk, cache_view(cache["tail"], i))
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps,

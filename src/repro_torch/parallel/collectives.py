@@ -69,7 +69,10 @@ STATS = SyncStats()
 
 
 class _PinnedPool:
-    """Pinned host buffers by (numel, dtype), taken and given back."""
+    """Pinned host buffers by (numel, dtype), taken and given back.  A
+    buffer is a normal tensor even when first taken under
+    ``torch.inference_mode`` (a serve step's), so that a later collective
+    outside it (a training step's) may write into it again."""
 
     def __init__(self):
         self._free = collections.defaultdict(list)
@@ -78,7 +81,8 @@ class _PinnedPool:
         free = self._free[(numel, dtype)]
         if free:
             return free.pop()
-        return torch.empty(numel, dtype=dtype, pin_memory=True)
+        with torch.inference_mode(False):
+            return torch.empty(numel, dtype=dtype, pin_memory=True)
 
     def give(self, buf: torch.Tensor):
         self._free[(buf.numel(), buf.dtype)].append(buf)

@@ -11,14 +11,20 @@ hybrid ``ZambaLM``, the ``XLSTMLM``) and know nothing of its cache's
 structure: the model makes the cache and its decode step updates it.
 
 On a rank grid (``grid``, every rank of which calls the step on the same
-global tokens) the steps run under the grid's rules
-(``sharding.make_rules(grid)``), as the reference's take its mesh rules:
-each rank keeps its rows of the batch (``batch``, over the data axes) and,
-for the dense model, its share of every layer (``heads``, ``ff``,
-``vocab`` over ``model``).  A step returns the rank's block of the logits, its rows and its vocab
-columns; a decode step's cache is the rank's, made for its rows
-(``local_rows``), with every key/value head.  ``BatchedServer`` is
-single-rank.
+global tokens) the steps run under the grid's rules, the reference's
+``launch/mesh.py::production_rules(grid, seq_shard=..., long_ctx=...)``,
+as the reference's take its mesh rules: each rank keeps its rows of the
+batch (``batch``, over the data axes) and, for the dense model, its share
+of every layer (``heads``, ``ff``, ``vocab`` over ``model``).  A step
+returns the rank's block of the logits, its rows and its vocab columns.
+The decode step's ``seq_shard`` splits its cache's sequence (``kv_seq``)
+over ``model``, ``long_ctx`` over ``(data, model)`` and keeps the batch
+whole on every rank; the dense model and the hybrid then decode by
+flash-decode (``models/attention.py::sharded_decode_attention``).  Its
+cache is the rank's block of the global cache: its rows, its ``kv_seq``
+slice and every key/value head (``model.init_cache`` under the step's
+``rules``).  A prefill has no cache to split and takes neither flag.
+``BatchedServer`` is single-rank (ROADMAP.md queue 1 item 9).
 
 ``BatchedServer`` keeps the JAX server's behaviour, quirks included, so its
 tokens can be held against the reference: decode runs in lockstep on one
@@ -49,27 +55,39 @@ def local_rows(batch_size: int, rules: Optional[MeshRules]) -> slice:
     return part(batch_size, "batch", rules).slice
 
 
-def make_serve_step(model, *, device=None, grid=None):
+def make_serve_step(model, *, device=None, grid=None, seq_shard=False,
+                    long_ctx=False):
     """Returns step(cache, tokens (B,1), pos) -> (logits (B,1,V), cache);
     the cache is updated in place.  Logits are f32 for the dense model and
-    in the model's dtype for the others, as in the reference.  On a grid,
-    the rank's block of the logits, from its cache (module docstring)."""
+    in the model's dtype for the others, as in the reference.
+
+    On a grid, under ``production_rules(grid, seq_shard=seq_shard,
+    long_ctx=long_ctx)`` (``step.rules``): ``tokens`` are the global batch,
+    the logits the rank's block (its rows, its vocab columns) and the cache
+    the rank's block of the global cache: its rows, its ``kv_seq`` slice
+    (the whole sequence where the rules do not split it, or where the
+    drop rule keeps it whole) and every key/value head.  Make it with
+    ``model.init_cache(B, S)`` under ``use_rules(step.rules)``; a global
+    cache's block is its ``sharding.part(S, "kv_seq", step.rules)`` slice
+    (and its ``kv_batch`` rows).  Only the rank whose slice holds ``pos``
+    writes the new entry."""
     dev = resolve_device(device)
     check_on_device(model, dev)
-    rules = grid_rules(model, grid)
+    rules = grid_rules(model, grid, seq_shard=seq_shard, long_ctx=long_ctx)
 
     def step(cache, tokens, pos: int):
         rows = local_rows(tokens.shape[0], rules)
         with torch.inference_mode(), use_rules(rules):
             return model.decode_step(cache, tokens[rows].to(dev), pos)
 
+    step.rules = rules
     return step
 
 
 def make_prefill_step(model, *, device=None, grid=None):
     """Returns step(tokens (B,S)) -> logits (B,S,V): the full-sequence
-    forward (logits dtype as ``make_serve_step``'s).  On a grid, the
-    rank's block of the logits (module docstring)."""
+    forward (logits dtype as ``make_serve_step``'s).  On a grid, under
+    ``production_rules(grid)``, the rank's block of the logits."""
     dev = resolve_device(device)
     check_on_device(model, dev)
     rules = grid_rules(model, grid)
@@ -79,6 +97,7 @@ def make_prefill_step(model, *, device=None, grid=None):
         with torch.inference_mode(), use_rules(rules):
             return model.forward_logits(tokens[rows].to(dev))
 
+    step.rules = rules
     return step
 
 

@@ -656,3 +656,124 @@ def tp_ranks(rank, world, spec):
         "resumed": _tp_trainer(spec, g22, 2, d, ckpt_every=100,
                                resume=True)}
     return out
+
+
+# ------------------------------------------ the sequence-sharded decode
+
+def _tree_to_torch(tree):
+    """A nested dict of (numpy array, dtype name) -> torch tensors; bf16
+    arrives as its uint16 bits."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v) for k, v in tree.items()}
+    a, dtype = tree
+    t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.view(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _seq_attention(spec, rules):
+    """The port's ``sharded_decode_attention`` on this rank's slice of the
+    spec's cache at each position; and on a cache whose length the drop
+    rule keeps whole, every rank holding all of it."""
+    from repro_torch.models.attention import sharded_decode_attention
+    from repro_torch.sharding import part
+    a = spec["attention"]
+    q, k, v = (torch.from_numpy(a[n]) for n in ("q", "k", "v"))
+    seq = part(k.shape[1], "kv_seq", rules)
+    out = {"seq": (seq.lo, seq.hi, seq.n)}
+    out["sharded"] = [sharded_decode_attention(
+        q, k[:, seq.slice], v[:, seq.slice], p, seq_len=k.shape[1],
+        rules=rules).numpy() for p in a["positions"]]
+    kd, vd = (torch.from_numpy(a["drop"][n]) for n in ("k", "v"))
+    out["drop"] = [sharded_decode_attention(
+        q, kd, vd, p, seq_len=kd.shape[1], rules=rules).numpy()
+        for p in a["drop"]["positions"]]
+    return out
+
+
+def _changed(now, before):
+    """The positions (dim 2 of every leaf of a KV cache) at which ``now``
+    differs from ``before`` in any bit."""
+    diff = (now.view(torch.int16) != before.view(torch.int16))
+    return sorted(set(torch.nonzero(diff.flatten(0, 1).any(0).any(-1).any(
+        -1)).flatten().tolist()))
+
+
+def _seq_run(spec, name, flags, shape, grid):
+    """A model's decode steps on this rank's block of the spec's global
+    cache, each from the cache as it was before the first (the entry a
+    step writes, and the recurrent states it moves, put back): the rank's
+    logits block, the positions of its slice each step changed, and the
+    entries it wrote."""
+    from repro_torch.models.attention import SEQ_LEN
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import make_serve_step
+    from repro_torch.sharding import part, use_rules
+    m = spec["models"][name]
+    model = build_model(m["cfg"], device="cpu", seed=None,
+                        dtype=torch.float32, remat=False)
+    model.load_state_dict({n: to_torch(a) for n, a in m["weights"].items()},
+                          strict=True)
+    step = make_serve_step(model, device="cpu", grid=grid, **flags)
+    with use_rules(step.rules):
+        cache = model.init_cache(*m["batch_seq"])
+    kv = [k for k in ("k", "v", "attn_k", "attn_v") if k in cache]
+    out = {"shapes": {k: tuple(cache[k].shape) for k in kv},
+           "seq_len": cache[SEQ_LEN],
+           "seq": tuple(getattr(part(m["batch_seq"][1], "kv_seq",
+                                     step.rules), a) for a in ("lo", "hi")),
+           "logits": [], "changed": [], "entries": [], "states": []}
+    # the rank's block of the global cache: its rows and kv_seq slice of
+    # the K/V leaves, the recurrent states whole
+    rows = part(m["batch_seq"][0], "kv_batch", step.rules).slice
+    seq = slice(*out["seq"])
+    for k, t in _tree_to_torch(m["cache"]).items():
+        if isinstance(t, dict):
+            for n, s in t.items():
+                cache[k][n].copy_(s)
+        else:
+            cache[k].copy_(t[:, rows, seq])
+    pristine = {k: v.clone() for k, v in cache.items() if k != SEQ_LEN
+                and not isinstance(v, dict)}
+    states = {k: {n: t.clone() for n, t in v.items()}
+              for k, v in cache.items() if isinstance(v, dict)}
+    lo = out["seq"][0]
+    for pos, tokens in zip(m["positions"], m["tokens"]):
+        logits, cache = step(cache, torch.from_numpy(tokens), pos)
+        out["logits"].append(logits.numpy().copy())
+        out["changed"].append({k: _changed(cache[k], pristine[k])
+                               for k in kv})
+        out["states"].append(digest({f"{k}.{n}": t for k, tree in
+                                     states.items() for n, t in
+                                     cache[k].items()}))
+        if out["seq"][0] <= pos < out["seq"][1]:
+            out["entries"].append({k: cache[k][:, :, pos - lo].float()
+                                   .numpy().copy() for k in kv})
+        else:
+            out["entries"].append(None)
+        for k, t in pristine.items():
+            cache[k].copy_(t)
+        for k, tree in states.items():
+            for n, t in tree.items():
+                cache[k][n].copy_(t)
+    return out
+
+
+def seq_decode_ranks(rank, world, spec):
+    """The port's flash-decode on 4 ranks: the attention alone under each
+    of ``spec["attention"]["grids"]``' rules, then every run of
+    ``spec["runs"]`` (model, rule flags, grid shape) through
+    ``make_serve_step``."""
+    from repro_torch.parallel.mesh import make_rank_grid
+    from repro_torch.sharding import make_rules
+    grids = {tuple(s): make_rank_grid(s, ("data", "model"))
+             for s in ((1, 4), (2, 2), (4, 1))}
+    out = {"coords": {s: (g.axis("data").index if g.axis("data") else 0,
+                          g.axis("model").index if g.axis("model") else 0)
+                      for s, g in grids.items()}}
+    for key, flags, shape in spec["attention"]["grids"]:
+        out[("attention", key)] = _seq_attention(
+            spec, make_rules(grids[tuple(shape)], **flags))
+    for name, flags, shape in spec["runs"]:
+        out[(name, tuple(shape))] = _seq_run(spec, name, flags, shape,
+                                             grids[tuple(shape)])
+    return out

@@ -111,6 +111,27 @@ def dataclass_tuple(perf):
             perf.bus_bandwidth_gbps, perf.time_s)
 
 
+@pytest.mark.cuda
+def test_pinned_buffer_taken_in_inference_mode_is_reused_outside():
+    """A staging buffer first taken under ``torch.inference_mode`` (a
+    serve step's all-reduce) takes a copy outside it (a training step's
+    all-reduce of the same size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the staging buffers are pinned "
+                    "host memory for CUDA tensors)")
+    from repro_torch.parallel import collectives as PX
+    x = torch.arange(12.0, device="cuda")
+    pool = PX._PinnedPool()
+    with torch.inference_mode():
+        buf = pool.take(12, torch.float32)
+        buf.copy_(x)
+    pool.give(buf)
+    again = pool.take(12, torch.float32)
+    assert again is buf
+    again.copy_(x * 2)
+    assert torch.equal(again, (x * 2).cpu())
+
+
 @pytest.mark.parametrize("fast,slow", [(2, 2), (4, 1), (16, 2), (8, 4)])
 def test_hierarchical_vs_flat_bytes(fast, slow):
     assert (T.hierarchical_vs_flat_bytes(1.5e9, fast=fast, slow=slow)

@@ -418,14 +418,62 @@ def test_launcher_model_parallel_on_the_cpu(capsys, tmp_path):
     assert abs(losses[0] - losses[1]) < 1e-2, losses
 
 
-@pytest.mark.parametrize("flags,item", [(dict(seq_shard=True), "item 9"),
-                                        (dict(long_ctx=True), "item 9"),
-                                        (dict(seq_parallel=True), "item 16")])
+@pytest.mark.parametrize("flags,item", [(dict(seq_parallel=True), "item 16")])
 def test_rules_that_split_the_sequence_are_refused(flags, item):
-    """No model of the port splits ``kv_seq`` or ``seq`` yet: rules that
-    do are refused rather than run whole on every rank."""
+    """No model of the port splits ``seq`` yet: rules that do are refused
+    rather than run whole on every rank.  (``kv_seq``, split by
+    ``seq_shard`` and ``long_ctx``, is the decode cache's:
+    ``tests/test_torch_seq_decode.py``.)"""
     model = build_model(reduced_config(get_config(ARCH)), device="cpu",
                         seed=0, remat=False)
     rules = make_rules(_Grid((2, 2), ("data", "model")), **flags)
     with pytest.raises(NotImplementedError, match=item):
         check_rules(model, rules)
+
+
+@pytest.mark.parametrize("flags,shape,error,match", [
+    (dict(long_ctx=True), (4, 1), ValueError, "grid axes"),
+    (dict(seq_shard=True), (1, 4), NotImplementedError, "item 15")])
+def test_xlstm_decode_under_sequence_rules_is_refused(flags, shape, error,
+                                                      match):
+    """The xLSTM has no KV cache: under ``long_ctx`` no rule it reads maps
+    to the data axis, so every rank along it would compute the same; under
+    ``seq_shard`` on a ``model`` axis its tensor parallelism is not
+    ported."""
+    from repro_torch.serve import make_serve_step
+    model = build_model(reduced_config(get_config("xlstm-125m")),
+                        device="cpu", seed=0, remat=False)
+    with pytest.raises(error, match=match):
+        make_serve_step(model, device="cpu",
+                        grid=_Grid(shape, ("data", "model")), **flags)
+
+
+@pytest.mark.parametrize("step", ["serve"])
+def test_hybrid_under_seq_shard_on_a_model_axis_is_refused(step):
+    """``seq_shard`` splits the hybrid's heads over ``model`` beside its
+    cache's sequence: its tensor parallelism is not ported."""
+    from repro_torch.serve import make_serve_step
+    model = build_model(reduced_config(get_config("zamba2-1.2b")),
+                        device="cpu", seed=0, remat=False)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        make_serve_step(model, device="cpu",
+                        grid=_Grid((1, 4), ("data", "model")),
+                        seq_shard=True)
+
+
+@pytest.mark.parametrize("flags,shape", [(dict(seq_shard=True), (1, 4)),
+                                         (dict(long_ctx=True), (2, 2))])
+def test_a_split_cache_without_its_global_length_is_refused(flags, shape):
+    """Under rules that split ``kv_seq`` a rank's cache carries its global
+    length (``init_cache`` under the rules records it).  A cache of 6
+    positions without it, a slice of 24 on 4 ranks or a whole cache the
+    drop rule would keep whole, is refused rather than read as positions
+    0..5 on every rank."""
+    from repro_torch.serve import make_serve_step
+    model = build_model(reduced_config(get_config(ARCH)), device="cpu",
+                        seed=0, remat=False)
+    step = make_serve_step(model, device="cpu",
+                           grid=_Grid(shape, ("data", "model")), **flags)
+    cache = model.init_cache(2, 6)
+    with pytest.raises(ValueError, match="global length"):
+        step(cache, torch.zeros((2, 1), dtype=torch.long), 3)
